@@ -3,14 +3,20 @@
 
     python3 chip_smoke.py
 
-Builds the two CUDA kernels from km_tpu_torch/csrc, holds each against
-its plain torch version at the main path's shapes, then drives the
-user's workflow through the port's CLI at the size of one RNA-seq
-sample: ``count`` a synthetic FASTQ of 2^30 bases on the card,
-``find_mutation --batch`` with the table resident on the card, then
-``find_report``; then the five bundled golden cases with a CUDA table.
-Every phase prints one line; any failure raises and the exit code is
-non-zero. Needs no JAX. The last line is
+Builds the CUDA kernels from km_tpu_torch/csrc and holds each against
+its plain torch version at 2^24 keys (the window pack and the chunk sort
+with runs at the main path's shapes; the chunk sort without runs, which
+no path calls, in its own phase). Then drives the user's workflow
+through the port's CLI at the size of one RNA-seq sample: ``count`` a
+synthetic FASTQ of 2^30 bases on the card, ``find_mutation --batch``
+with the table resident on the card (the walk, the Dijkstra sweeps and
+the NNLS refinement on the card), then ``find_report``, each timed
+beside the port's host path (``--device host``). Then a 400-target
+catalog on the card against the host path, warm through ``run_catalog``
+and cold through the CLI (table load and upload included), and the
+five bundled golden cases with a CUDA table. Every phase prints one
+line; any failure raises and the exit code is non-zero. Needs no JAX.
+The last line is
 
     {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}
 
@@ -42,6 +48,8 @@ NPM1_TARGET = "NPM1_4ins_exons_10-11utr"
 NPM1_INSERT = (44, "TCTG")  # the NPM1 type-A duplication of the fixture
 NPM1_COVERAGE = 200
 FLANK = 100
+CATALOG_TARGETS = 400
+CATALOG_SAMPLE = "03H116_ITD"
 GOLDEN = {
     "NPM1": ("NPM1_4ins_exons_10-11utr", "02H025_NPM1"),
     "FLT3_ITD": ("FLT3-ITD_exons_13-15", "03H116_ITD"),
@@ -126,6 +134,28 @@ def kernel_sort_runs(device, n: int = 1 << 24) -> dict:
     plain_ms = cuda_time_ms(lambda: sort_runs.sort_chunks_runs_plain(keys))
     return dict(n=n, chunk=sort_runs.CHUNK, max_abs_err=err, ms=ms,
                 plain_ms=plain_ms)
+
+
+def kernel_sort_chunks(device, n: int = 1 << 24) -> dict:
+    import torch
+
+    from km_tpu_torch.device import SENTINEL
+    from km_tpu_torch.ops import sort_runs
+
+    rng = np.random.default_rng(3)
+    keys = rng.integers(0, 1 << 10, n).astype(np.int64) << 40  # heavy ties
+    keys[rng.random(n) < 0.05] = SENTINEL
+    keys = torch.from_numpy(keys).to(device)
+    got = sort_runs.sort_chunks(keys)
+    want = sort_runs.sort_chunks_plain(keys)
+    if not torch.equal(got, want):
+        raise AssertionError("sort_chunks kernel != plain: %d keys differ"
+                             % int((got != want).sum()))
+    ms = cuda_time_ms(lambda: sort_runs.sort_chunks(keys))
+    plain_ms = cuda_time_ms(lambda: sort_runs.sort_chunks_plain(keys))
+    return dict(n=n, chunk=sort_runs.CHUNK,
+                max_abs_err=max_abs_err(got, want), ms=ms, plain_ms=plain_ms,
+                launches=sort_runs.sort_chunks.launches)
 
 
 # ---------------------------------------------------------------------------
@@ -217,6 +247,17 @@ def rows_of(text: str):
             if line and not line.startswith("#")][1:]
 
 
+def timed_cli(argv, want: str) -> float:
+    """Seconds of one CLI run, whose rows must equal those of ``want``
+    (another run's output)."""
+    t0 = time.perf_counter()
+    out, _ = run_cli(argv)
+    seconds = time.perf_counter() - t0
+    if sorted(rows_of(out)) != sorted(rows_of(want)):
+        raise AssertionError("%s: rows differ from the first run" % argv)
+    return seconds
+
+
 def phase_count(device, workdir: str, log2_bases: int, seed: int) -> dict:
     import torch
 
@@ -248,12 +289,53 @@ def phase_count(device, workdir: str, log2_bases: int, seed: int) -> dict:
                 peak_device_bytes=peak)
 
 
+def device_calls() -> dict:
+    """Calls of the catalog's three device programs, and host sweeps."""
+    from km_tpu_torch.ops import batch_walk, nnls, pathgraph
+
+    return dict(walk=batch_walk.device_discover.calls,
+                sweeps=pathgraph.sweep_kernel.calls,
+                nnls=nnls.Refinement.calls,
+                host_sweeps=pathgraph.batched_sweeps.host_fallbacks)
+
+
+def check_device_calls(before: dict, what: str) -> dict:
+    """The calls made since ``before``; raises unless the walk, the
+    sweeps and NNLS each ran on the card and no graph took the host
+    sweep."""
+    calls = {k: v - before[k] for k, v in device_calls().items()}
+    if min(calls["walk"], calls["sweeps"], calls["nnls"]) == 0 \
+            or calls["host_sweeps"]:
+        raise AssertionError("%s did not run the device path: %s"
+                             % (what, calls))
+    return calls
+
+
+def phase_times() -> dict:
+    from km_tpu_torch.utils import profiling
+
+    return {k: v for k, v in profiling.report().items()
+            if k in ("walk", "sweeps", "graph_host", "nnls", "rows",
+                     "quant_host", "table_to_device")}
+
+
 def phase_find_mutation(device, workdir: str, table: str) -> dict:
+    from km_tpu_torch.ops import batch_walk
+
     target, _ref, alt = npm1_sequences()
+    before = device_calls()
     t0 = time.perf_counter()
     fm, _ = run_cli(["find_mutation", "--batch", "--device", device.type,
                      target, table])
     fm_s = time.perf_counter() - t0
+    times = phase_times()
+    calls = check_device_calls(before, "find_mutation --batch")
+    walk = dict(batch_walk.device_discover.stats)
+    # the same command on the port's host path, then on the card again
+    # (warm): table load and upload included in each
+    host_s, again_s = (timed_cli(["find_mutation", "--batch", "--device", d,
+                                  target, table], fm)
+                       for d in ("host", device.type))
     fm_path = os.path.join(workdir, "npm1.find_mutation.tsv")
     with open(fm_path, "w") as f:
         f.write(fm)
@@ -272,7 +354,9 @@ def phase_find_mutation(device, workdir: str, table: str) -> dict:
     if not reported:
         raise AssertionError("find_report produced no row:\n" + report)
     return dict(variant=hits[0][3], rvaf=rvaf, report_type=reported[0][3],
-                find_mutation_s=fm_s, with_report_s=total_s)
+                find_mutation_s=fm_s, with_report_s=total_s,
+                host_find_mutation_s=host_s, warm_find_mutation_s=again_s,
+                phases_s=times, calls=calls, walk=walk)
 
 
 def phase_count_slice(device, fastq: str) -> dict:
@@ -296,6 +380,108 @@ def phase_count_slice(device, fastq: str) -> dict:
     if not (np.array_equal(hk, dk) and np.array_equal(hc, dc)):
         raise AssertionError("slice counts differ from count_batches_host")
     return dict(bases=total, distinct=len(hk))
+
+
+def catalog_sequences(n_targets: int) -> list[tuple[str, str]]:
+    """The 9 GRCh38 catalog targets cycled to ``n_targets``, as
+    (sequence, name) with each name <target>_<i>."""
+    from km_tpu.io.fasta import read_target
+    from km_tpu.refdata import catalog_dir
+
+    cat = catalog_dir("GRCh38")
+    base = []
+    for fn in sorted(os.listdir(cat)):
+        seqs, _ = read_target(os.path.join(cat, fn))
+        base.append(("".join(seqs), os.path.splitext(fn)[0]))
+    return [(base[i % len(base)][0], "%s_%d" % (base[i % len(base)][1], i))
+            for i in range(n_targets)]
+
+
+def catalog_targets(n_targets: int, k: int):
+    from km_tpu.models.sequence import TargetSeq
+
+    return [TargetSeq(seq, name, k)
+            for seq, name in catalog_sequences(n_targets)]
+
+
+def write_catalog(workdir: str, n_targets: int) -> str:
+    """The cycled catalog as one FASTA file per target, in a directory
+    that ``find_mutation`` takes as its target argument."""
+    cat = os.path.join(workdir, "catalog_%d" % n_targets)
+    os.makedirs(cat, exist_ok=True)
+    for seq, name in catalog_sequences(n_targets):
+        with open(os.path.join(cat, name + ".fa"), "w") as f:
+            f.write(">%s\n%s\n" % (name, seq))
+    return cat
+
+
+def cli_catalog(device, catalog: str, table: str) -> dict:
+    """``find_mutation --batch`` on the catalog directory: what a user
+    waits for (table load, upload and a cold run included), on the card
+    and on the port's host path, with equal rows."""
+    t0 = time.perf_counter()
+    out, _ = run_cli(["find_mutation", "--batch", "--device", device.type,
+                      catalog, table])
+    device_s = time.perf_counter() - t0
+    host_s = timed_cli(["find_mutation", "--batch", "--device", "host",
+                        catalog, table], out)
+    return dict(device_s=device_s, host_s=host_s)
+
+
+def timed_catalog(targets, table, runs: int = 2):
+    """run_catalog ``runs`` times; returns (rows as text, seconds of the
+    last run, its phase times)."""
+    from km_tpu_torch.models.batch import run_catalog
+    from km_tpu_torch.utils import profiling
+
+    for _ in range(runs):
+        profiling.reset()
+        t0 = time.perf_counter()
+        rows = run_catalog(targets, table, on_budget="skip")
+        seconds = time.perf_counter() - t0
+    return [[str(r) for r in rs] for rs in rows], seconds, phase_times()
+
+
+def compare_catalog(targets, host_table, device) -> dict:
+    """The catalog on a CUDA table (cold, then warm) against the port's
+    host path on the same table (cold, then warm): equal rows."""
+    from km_tpu_torch.ops import batch_walk
+    from km_tpu_torch.ops.device_table import DeviceCountTable
+
+    t0 = time.perf_counter()
+    dev_table = DeviceCountTable.from_host(host_table, device=device)
+    upload_s = time.perf_counter() - t0
+    before = device_calls()
+    dev_rows, dev_s, dev_phases = timed_catalog(targets, dev_table)
+    calls = check_device_calls(before, "the device catalog")
+    stats = dict(batch_walk.device_discover.stats)
+    host_rows, host_s, host_phases = timed_catalog(targets, host_table)
+    if dev_rows != host_rows:
+        bad = [i for i, (a, b) in enumerate(zip(dev_rows, host_rows))
+               if a != b]
+        raise AssertionError("device rows differ from the host path on "
+                             "%d targets, first %s" % (len(bad), bad[:3]))
+    return dict(targets=len(targets), table_keys=int(dev_table.n),
+                rows=sum(len(r) for r in dev_rows), upload_s=upload_s,
+                device_s=dev_s, host_s=host_s, device_phases_s=dev_phases,
+                host_phases_s=host_phases, walk=stats, calls=calls)
+
+
+def phase_catalog_device(device, workdir: str, counted_table: str) -> dict:
+    from km_tpu.models.table import CountTable
+    from km_tpu.refdata import jf_path
+
+    host = CountTable.from_jf(jf_path(CATALOG_SAMPLE))
+    host.name = CATALOG_SAMPLE
+    targets = catalog_targets(CATALOG_TARGETS, host.k)
+    fixture = compare_catalog(targets, host, device)
+    counted = CountTable.load(counted_table)
+    counted.name = "counted"
+    counted_run = compare_catalog(targets, counted, device)
+    catalog = write_catalog(workdir, CATALOG_TARGETS)
+    fixture["cli"] = cli_catalog(device, catalog, jf_path(CATALOG_SAMPLE))
+    counted_run["cli"] = cli_catalog(device, catalog, counted_table)
+    return dict(fixture=fixture, counted=counted_run)
 
 
 def phase_golden(device) -> dict:
@@ -354,6 +540,8 @@ def main(argv=None) -> int:
     say("kernel_pack", **kernels["pack"])
     kernels["sort_runs"] = kernel_sort_runs(device)
     say("kernel_sort_runs", **kernels["sort_runs"])
+    kernels["sort_chunks"] = kernel_sort_chunks(device)
+    say("kernel_sort_chunks", **kernels["sort_chunks"])
 
     if not native.available():
         raise RuntimeError("km_tpu.native (libkmio.so) did not build: "
@@ -374,7 +562,11 @@ def main(argv=None) -> int:
             raise AssertionError("a kernel of the path was not launched: "
                                  "%s" % launches)
         say("count_slice", **phase_count_slice(device, counted["fastq"]))
-        say("golden", **phase_golden(device))
+        say("catalog_device", **phase_catalog_device(device, workdir,
+                                                     counted["table"]))
+        before = device_calls()
+        golden = phase_golden(device)
+        say("golden", calls=check_device_calls(before, "golden"), **golden)
     finally:
         shutil.rmtree(workdir, ignore_errors=True)
     jax_modules = sorted(m for m in sys.modules if m.split(".")[0] == "jax")
@@ -382,11 +574,17 @@ def main(argv=None) -> int:
         raise AssertionError("JAX was imported: %s" % jax_modules[:5])
     say("no_jax", modules=len(sys.modules))
 
+    # K3 lies on no path: its launches are those of its own phase
+    launches["sort_chunks"] = kernels["sort_chunks"]["launches"]
     replaces = {"pack": "km_tpu/ops/pallas_pack.py:77",
-                "sort_runs": "km_tpu/ops/pallas_sort.py:102"}
+                "sort_runs": "km_tpu/ops/pallas_sort.py:102",
+                "sort_chunks": "km_tpu/ops/pallas_sort.py:68"}
+    sources = {"pack": "pack", "sort_runs": "sort_runs",
+               "sort_chunks": "sort_runs"}
     report = [dict(name=name, route="cuda",
-                   source="km_tpu_torch/csrc/%s.cu" % name,
+                   source="km_tpu_torch/csrc/%s.cu" % sources[name],
                    replaces=replaces[name],
+                   path="none" if name == "sort_chunks" else "main",
                    launches=launches[name],
                    max_abs_err=m["max_abs_err"], ms=m["ms"],
                    plain_ms=m["plain_ms"])

@@ -86,6 +86,8 @@ def lib():
         handle.km_pack_windows.restype = i32
         handle.km_sort_runs.argtypes = [vp, i64, i32, vp, vp, vp]
         handle.km_sort_runs.restype = i32
+        handle.km_sort_chunks.argtypes = [vp, i64, i32, vp, vp]
+        handle.km_sort_chunks.restype = i32
         _lib = handle
     return _lib
 

@@ -1,11 +1,14 @@
-// Chunk sort + run detection for the counting pipeline.
+// Chunk sort, with or without run detection, for the counting pipeline.
 //
 // Replaces km_tpu/ops/pallas_sort.py::_sort_runs_kernel (entry
-// sort_chunks_runs). The keys are sorted ascending within independent
-// `chunk`-sized chunks; then, in the same residency, every run of equal
-// keys gets its length written at its first position (0 elsewhere), and
-// runs of the sentinel 2^63-1 get 0. A ragged last chunk is padded with
-// the sentinel in shared memory and only its real positions are written.
+// sort_chunks_runs) and, as the mode without runs,
+// km_tpu/ops/pallas_sort.py::_sort_kernel (entry sort_chunks). The keys
+// are sorted ascending within independent `chunk`-sized chunks; then, in
+// the same residency, every run of equal keys gets its length written at
+// its first position (0 elsewhere), and runs of the sentinel 2^63-1 get
+// 0. Without runs, the sorted chunk is written out and nothing else. A
+// ragged last chunk is padded with the sentinel in shared memory and
+// only its real positions are written.
 //
 // What bounds it on an H100: shared-memory compare-exchange work. A chunk
 // of 2^14 keys takes log2(c)(log2(c)+1)/2 = 105 bitonic stages of 2^13
@@ -32,6 +35,7 @@ constexpr int kMinChunk = 32 * kSeg;
 constexpr int kMaxChunk = 1 << 14;
 constexpr long long kSentinel = 0x7FFFFFFFFFFFFFFFLL;
 
+template <bool kRuns>
 __global__ void sort_runs_kernel(const long long* __restrict__ keys,
                                  long long n, int chunk,
                                  long long* __restrict__ out_keys,
@@ -65,6 +69,14 @@ __global__ void sort_runs_kernel(const long long* __restrict__ keys,
       }
       __syncthreads();
     }
+  }
+
+  if constexpr (!kRuns) {
+    for (int i = tid; i < chunk; i += nthreads) {
+      const long long p = base + i;
+      if (p < n) out_keys[p] = s[i];
+    }
+    return;
   }
 
   // first run start in this thread's segment (chunk if none)
@@ -108,23 +120,34 @@ __global__ void sort_runs_kernel(const long long* __restrict__ keys,
   }
 }
 
-}  // namespace
-
-extern "C" int km_sort_runs(const void* keys, int64_t n, int chunk,
-                            void* out_keys, void* out_len, void* stream) {
+template <bool kRuns>
+int launch(const void* keys, int64_t n, int chunk, void* out_keys,
+           void* out_len, void* stream) {
   if (chunk < kMinChunk || chunk > kMaxChunk || (chunk & (chunk - 1)) != 0)
     return static_cast<int>(cudaErrorInvalidValue);
   if (n > 0) {
     const size_t smem = static_cast<size_t>(chunk) * sizeof(long long);
     cudaError_t err = cudaFuncSetAttribute(
-        sort_runs_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        sort_runs_kernel<kRuns>, cudaFuncAttributeMaxDynamicSharedMemorySize,
         static_cast<int>(smem));
     if (err != cudaSuccess) return static_cast<int>(err);
     const long long grid = (n + chunk - 1) / chunk;
-    sort_runs_kernel<<<static_cast<unsigned>(grid), chunk / kSeg, smem,
-                       static_cast<cudaStream_t>(stream)>>>(
+    sort_runs_kernel<kRuns><<<static_cast<unsigned>(grid), chunk / kSeg, smem,
+                              static_cast<cudaStream_t>(stream)>>>(
         static_cast<const long long*>(keys), n, chunk,
         static_cast<long long*>(out_keys), static_cast<int*>(out_len));
   }
   return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace
+
+extern "C" int km_sort_runs(const void* keys, int64_t n, int chunk,
+                            void* out_keys, void* out_len, void* stream) {
+  return launch<true>(keys, n, chunk, out_keys, out_len, stream);
+}
+
+extern "C" int km_sort_chunks(const void* keys, int64_t n, int chunk,
+                              void* out_keys, void* stream) {
+  return launch<false>(keys, n, chunk, out_keys, nullptr, stream);
 }

@@ -1,15 +1,14 @@
 """Batched catalog analysis over the torch count table.
 
-Replaces km_tpu.models.batch: the discovery walk is a frontier expansion
-in which every active walklet across every target advances one step per
-round, and all child lookups of a round resolve in one batched
-``children`` call on the table's device. Graph building, path
-enumeration, quantification and classification reuse km_tpu's host
-modules per target.
-
-The walk, the Dijkstra sweeps and the NNLS solve run on the host for
-now (``walk='host'``, ``pathing='host'``, ``quant='host'``); asking for
-their device forms raises NotImplementedError.
+Replaces km_tpu.models.batch. With a torch DeviceCountTable the three
+device programs run on the table's device, as km_tpu's do on its
+accelerator: the walk (ops.batch_walk.device_discover), the Dijkstra
+sweeps of every target's graph (ops.pathgraph) and the NNLS refinement
+of every quantification problem (ops.nnls). Graph building, path
+splicing, classification and row output reuse km_tpu's host modules per
+target. ``walk='host'`` keeps the host-orchestrated frontier walk, in
+which every active walklet advances one step per round and each round's
+child lookups resolve in one batched call on the table's device.
 """
 
 from __future__ import annotations
@@ -24,6 +23,7 @@ from km_tpu.models.walk import NodeBudgetExceeded
 
 from ..device import to_device_keys, to_host_keys
 from ..ops.device_table import DeviceCountTable
+from ..utils import profiling
 
 
 class _BatchLookup:
@@ -150,10 +150,13 @@ class PrecomputedWalker:
         return self._node_data
 
 
-def _host_only(name: str, value: str) -> None:
-    if value not in ("auto", "host"):
-        raise NotImplementedError(
-            "%s=%r: only the host %s is ported so far" % (name, value, name))
+def _choose(name: str, value: str, default: str) -> str:
+    if value == "auto":
+        return default
+    if value not in ("host", "device"):
+        raise ValueError("%s must be 'auto', 'host' or 'device'; got %r"
+                         % (name, value))
+    return value
 
 
 def run_catalog(targets: list[TargetSeq], table, ratio=0.05, count=5,
@@ -161,39 +164,101 @@ def run_catalog(targets: list[TargetSeq], table, ratio=0.05, count=5,
                 walk: str = "auto", quant: str = "auto",
                 pathing: str = "auto", graphical: bool = False,
                 on_budget: str = "raise"):
-    """Full batched pipeline: frontier walk, then graph / path
-    enumeration / quantification / classification across all targets.
-    Returns one sorted row list per target.
+    """Full batched pipeline: walk, then graph / path enumeration /
+    quantification / classification across all targets. Returns one
+    sorted row list per target.
 
     ``table`` is a torch DeviceCountTable or a km_tpu host CountTable.
-    walk, pathing and quant take 'auto' or 'host' (their device forms
-    are not ported yet and raise NotImplementedError). on_budget:
-    'raise' = a max_node overrun aborts the whole call like the
-    sequential CLI; 'skip' = the overrunning target alone yields an
-    empty row list, with km's error line on stderr."""
-    _host_only("walk", walk)
-    _host_only("pathing", pathing)
-    _host_only("quant", quant)
-    node_datas = batch_discover(targets, table, ratio=ratio, count=count,
-                                max_stack=max_stack, max_break=max_break,
-                                max_node=max_node, on_budget=on_budget)
+    walk: 'device' = the walk on the table's device (ops.batch_walk),
+    'host' = host-orchestrated rounds, 'auto' = device for a torch
+    table, host for a host table (km_tpu.models.batch's rule).
+    pathing: 'device' = every target's sweeps batched on the device
+    (ops.pathgraph), 'host' = per-target host sweeps, 'auto' = follow
+    walk. quant: 'device' = every problem's refinement batched on the
+    device (ops.nnls), 'host' = per-problem spec NNLS, 'auto' = follow
+    walk. A device choice needs a torch table. on_budget: 'raise' = a
+    max_node overrun aborts the whole call like the sequential CLI;
+    'skip' = the overrunning target alone yields an empty row list, with
+    km's error line on stderr."""
+    on_device = isinstance(table, DeviceCountTable)
+    walk = _choose("walk", walk, "device" if on_device else "host")
+    quant = _choose("quant", quant, walk)
+    pathing = _choose("pathing", pathing, walk)
+    if not on_device and "device" in (walk, quant, pathing):
+        raise ValueError("walk/pathing/quant='device' needs a torch "
+                         "DeviceCountTable; got %s" % type(table).__name__)
+    fetch_counts = None
+    with profiling.phase("walk"):
+        if walk == "device":
+            from ..ops.batch_walk import device_discover
+
+            # the count lookup is queued inside device_discover and read
+            # back after graph building and path enumeration
+            orders, fetch_counts = device_discover(
+                [t.ref_mer for t in targets], table, ratio=ratio,
+                count=count, max_stack=max_stack, max_break=max_break,
+                max_node=max_node, on_budget=on_budget, defer_counts=True)
+            node_datas = [None if o is None else dict.fromkeys(o, 0)
+                          for o in orders]
+        else:
+            node_datas = batch_discover(
+                targets, table, ratio=ratio, count=count,
+                max_stack=max_stack, max_break=max_break,
+                max_node=max_node, on_budget=on_budget)
 
     finders = []
-    for target, node_data in zip(targets, node_datas):
-        if node_data is None:  # only possible with on_budget='skip'
-            sys.stderr.write(
-                "ERROR: Node query count limit exceeded: max={} "
-                "(target {}; skipped, batch continues)\n".format(
-                    max_node, target.name))
-            finders.append(None)
-            continue
-        finders.append(finder_from_nodes(target, table, node_data))
+    with profiling.phase("graph_host"):
+        for target, node_data in zip(targets, node_datas):
+            if node_data is None:  # only possible with on_budget='skip'
+                sys.stderr.write(
+                    "ERROR: Node query count limit exceeded: max={} "
+                    "(target {}; skipped, batch continues)\n".format(
+                        max_node, target.name))
+                finders.append(None)
+                continue
+            finders.append(finder_from_nodes(target, table, node_data))
     live = [f for f in finders if f is not None]
-    for finder in live:
-        finder.find_alt_paths()
-    for finder in live:
-        finder.quantify_paths(graphical)
-        finder.quantify_clusters(graphical)
+    if pathing == "device":
+        from ..ops.pathgraph import batched_alt_paths
+
+        batched_alt_paths(live, table.device)
+    else:
+        with profiling.phase("graph_host"):
+            for finder in live:
+                finder.find_alt_paths()
+
+    if fetch_counts is not None:
+        with profiling.phase("walk"):
+            for finder, node_data in zip(finders, fetch_counts()):
+                if finder is not None:
+                    finder.counts = list(node_data.values()) + [-1, -1]
+
+    if quant == "device" and not graphical:
+        from ..ops import nnls
+
+        jobs, emits, prewarms = [], [], []
+        with profiling.phase("nnls"):
+            for finder in live:
+                for paths, emit, prewarm in finder.quant_jobs():
+                    jobs.append((paths, finder.counts))
+                    emits.append(emit)
+                    prewarms.append(prewarm)
+            fetch = nnls.solve_batch(jobs, table.device, defer=True)
+        # classification and sequence strings need no coefficients: they
+        # run while the queued refinement runs on the device
+        with profiling.phase("rows"):
+            for prewarm in prewarms:
+                prewarm()
+        with profiling.phase("nnls"):
+            solutions = fetch()
+        with profiling.phase("rows"):
+            for emit, (coef, rvaf) in zip(emits, solutions):
+                emit(coef, rvaf)
+    else:
+        with profiling.phase("quant_host"):
+            for finder in live:
+                finder.quantify_paths(graphical)
+                finder.quantify_clusters(graphical)
     return [finder.sorted_rows() if finder is not None else []
             for finder in finders]
 

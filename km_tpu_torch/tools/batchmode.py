@@ -1,11 +1,12 @@
 """Batched catalog mode for find_mutation (``--batch``).
 
 The pipeline runs through models.batch.run_catalog with the count table
-moved to the device the user named (``--device``, 'cuda' by default):
-every round of the frontier walk resolves its child lookups in one call
-on that device. 'host' keeps km_tpu's numpy table. Rows are the same
-as sequential mode's. Replaces the reference's one-process-per-target
-shell loop (reference: example/run_leucegene.sh:29-35).
+moved to the device the user named (``--device``, 'cuda' by default),
+where the walk, the Dijkstra sweeps and the NNLS refinement of every
+target run ('cpu' runs them on CPU tensors). 'host' keeps km_tpu's
+numpy table and host stages. Rows are the same as sequential mode's.
+Replaces the reference's one-process-per-target shell loop (reference:
+example/run_leucegene.sh:29-35).
 """
 
 from __future__ import annotations

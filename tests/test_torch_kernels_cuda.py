@@ -1,4 +1,5 @@
-"""The CUDA kernels against their plain torch versions, on a card.
+"""The CUDA kernels against their plain torch versions, and the batched
+catalog's device path against the port's host path, on a card.
 
 These tests skip where there is no CUDA device. The machine with the
 card has no JAX, and tests/conftest.py imports it, so run them there
@@ -12,10 +13,19 @@ import pytest
 
 import torch
 
+import os
+
+from km_tpu.io.fasta import read_target
+from km_tpu.models.pathfinder import OverlapGraph
+from km_tpu.models.sequence import TargetSeq
+from km_tpu.models.table import CountTable
 from km_tpu.ops.count import count_batches_host
+from km_tpu.refdata import DATA_DIR, catalog_dir
 
 from km_tpu_torch.device import SENTINEL
-from km_tpu_torch.ops import count, pack, sort_runs
+from km_tpu_torch.models.batch import run_catalog
+from km_tpu_torch.ops import batch_walk, count, pack, pathgraph, sort_runs
+from km_tpu_torch.ops.device_table import DeviceCountTable
 
 KS = [2, 15, 16, 17, 21, 31]
 
@@ -59,6 +69,96 @@ def test_sort_runs_kernel_matches_plain(cuda_device, chunk, n):
     want_k, want_l = sort_runs.sort_chunks_runs_plain(keys, chunk=chunk)
     assert torch.equal(got_k, want_k)
     assert torch.equal(got_l, want_l)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("chunk", [sort_runs.MIN_CHUNK, 4096, sort_runs.CHUNK])
+@pytest.mark.parametrize("n", [1, 5000, 3 * sort_runs.CHUNK + 77])
+def test_sort_chunks_kernel_matches_plain(cuda_device, chunk, n):
+    rng = np.random.default_rng(14)
+    keys = rng.integers(0, 1 << 6, n).astype(np.int64) << 30  # heavy ties
+    keys[rng.random(n) < 0.05] = SENTINEL
+    keys = torch.from_numpy(keys).to(cuda_device)
+    launches = sort_runs.sort_chunks.launches
+    got = sort_runs.sort_chunks(keys, chunk=chunk)
+    assert torch.equal(got, sort_runs.sort_chunks_plain(keys, chunk=chunk))
+    assert torch.equal(got, sort_runs.sort_chunks_runs(keys, chunk=chunk)[0])
+    assert sort_runs.sort_chunks.launches == launches + 1
+
+
+def _catalog(k):
+    cat = catalog_dir("GRCh38")
+    targets = []
+    for fn in sorted(os.listdir(cat)):
+        seqs, _ = read_target(os.path.join(cat, fn))
+        targets.append(TargetSeq("".join(seqs), os.path.splitext(fn)[0], k))
+    return targets
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("sample", ["02H025_NPM1", "02H033_DNMT3A_sub",
+                                    "03H112_IandI", "03H116_ITD",
+                                    "05H094_FLT3-TKD_del"])
+def test_device_catalog_matches_host_path(cuda_device, sample):
+    host = CountTable.from_jf(os.path.join(DATA_DIR, "jf", sample + ".jf"))
+    targets = _catalog(host.k)
+    want = [[str(r) for r in rows] for rows in run_catalog(targets, host)]
+    table = DeviceCountTable.from_host(host, device=cuda_device)
+    got = run_catalog(targets, table)
+    assert [[str(r) for r in rows] for rows in got] == want
+
+
+@pytest.mark.cuda
+def test_graph_replay_changes_nothing(cuda_device):
+    """The walk (with overflow and depth retries), the sweeps and NNLS
+    replayed as CUDA graphs give what CPU tensors give."""
+    host = CountTable.from_jf(os.path.join(DATA_DIR, "jf", "03H116_ITD.jf"))
+    targets = _catalog(host.k) * 5
+    mers = [t.ref_mer for t in targets]
+    kw = dict(walklet_cap=8, copy_cap=1, commit_cap=1, log_cap=2,
+              stack_cap=8)
+    cpu = DeviceCountTable.from_host(host, device="cpu")
+    card = DeviceCountTable.from_host(host, device=cuda_device)
+    want = batch_walk.device_discover(mers, cpu, **kw)
+    rows_want = [[str(r) for r in rs] for rs in run_catalog(targets, cpu)]
+    got = batch_walk.device_discover(mers, card, **kw)
+    assert [list(r) for r in got] == [list(r) for r in want]
+    assert got == want
+    assert batch_walk.device_discover.stats["retries"] > 0
+    rows = run_catalog(targets, card)
+    assert [[str(r) for r in rs] for rs in rows] == rows_want
+
+
+@pytest.mark.cuda
+def test_sweep_ties_on_card(cuda_device):
+    """argmin on the card takes the lowest index among equal distances:
+    a diamond of equal paths and random graphs with weights 1 and 0.01
+    give the host spec's trees."""
+    rng = np.random.default_rng(5)
+    graphs = []
+    for n_real in [4] + [int(x) for x in rng.integers(3, 300, 10)]:
+        g = OverlapGraph.__new__(OverlapGraph)
+        g.n_real, g.n, g.k = n_real, n_real + 2, 31
+        g.first_node, g.last_node = n_real, n_real + 1
+        g._src, g._dst, g._w = [], [], []
+        if n_real == 4:
+            for j in (3, 1, 2, 0):
+                g.set_edge(g.first_node, j, 1.0)
+                g.set_edge(j, g.last_node, 1.0)
+        else:
+            for _ in range(4 * g.n):
+                i, j = (int(x) for x in rng.integers(0, g.n, 2))
+                if i != j:
+                    g.set_edge(i, j, 0.01 if rng.random() < 0.3 else 1.0)
+        g.freeze()
+        graphs.append(g)
+    got = pathgraph.batched_sweeps(graphs, cuda_device)
+    for g, (before, after) in zip(graphs, got):
+        assert np.array_equal(before, g._sweep(g.first_node, g.succ_ptr,
+                                               g.succ_ids, g.succ_w))
+        assert np.array_equal(after, g._sweep(g.last_node, g.pred_ptr,
+                                              g.pred_ids, g.pred_w))
+    assert got[0][0][graphs[0].last_node] == 0
 
 
 @pytest.mark.cuda

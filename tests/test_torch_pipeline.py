@@ -31,6 +31,11 @@ from helpers import REFDATA, find_mutation_args, find_report_args, run_tool
 from test_golden_files import CASES, _read
 from test_reads_to_variant_e2e import _random_linear_seq, _reads
 
+# the device path on CPU tensors is thousands of small ops: one intra-op
+# thread each, so that parallel test workers do not oversubscribe the
+# cores
+torch.set_num_threads(1)
+
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CAT = f"{REFDATA}/catalog/GRCh38"
 SAMPLES = ["02H025_NPM1", "02H033_DNMT3A_sub", "03H112_IandI", "03H116_ITD",
@@ -157,10 +162,19 @@ def test_cuda_without_a_card_raises(tmp_path):
 
 @pytest.mark.parametrize("option", ["walk", "pathing", "quant"])
 def test_device_walk_not_ported_raises(option):
-    host = CountTable.from_jf(f"{REFDATA}/jf/{SAMPLES[0]}.jf")
+    """Each device stage alone, the other two on the host, gives km_tpu's
+    rows; a device stage on a host table raises. (The name predates the
+    device path and is kept so that the case keeps its history.)"""
+    host = CountTable.from_jf(f"{REFDATA}/jf/03H116_ITD.jf")
     table = DeviceCountTable.from_host(host, device="cpu")
-    with pytest.raises(NotImplementedError):
-        run_catalog(_catalog(31)[:1], table, **{option: "device"})
+    want = jax_run_catalog(_catalog(host.k), host, walk="host")
+    choice = dict(walk="host", pathing="host", quant="host")
+    choice[option] = "device"
+    got = run_catalog(_catalog(host.k), table, **choice)
+    assert [[str(r) for r in rows] for rows in got] == \
+        [[str(r) for r in rows] for rows in want]
+    with pytest.raises(ValueError, match="torch DeviceCountTable"):
+        run_catalog(_catalog(host.k)[:1], host, **{option: "device"})
 
 
 def test_kernel_wrappers_check_their_inputs():
@@ -187,3 +201,18 @@ def test_kernel_wrappers_check_their_inputs():
         sort_runs.sort_chunks_runs(keys, chunk=3000)  # not a power of two
     with pytest.raises(ValueError):
         sort_runs.sort_chunks_runs(keys, chunk=1 << 15)  # beyond shared mem
+    with pytest.raises(TypeError):
+        sort_runs.sort_chunks(keys.to(torch.int32))
+    with pytest.raises(ValueError, match="contiguous"):
+        sort_runs.sort_chunks(torch.zeros(8192, dtype=torch.int64)[::2])
+    with pytest.raises(ValueError, match="contiguous"):
+        sort_runs.sort_chunks(keys.view(64, 64))  # not 1-D
+    with pytest.raises(ValueError):
+        sort_runs.sort_chunks(keys, chunk=3000)
+    with pytest.raises(ValueError):
+        sort_runs.sort_chunks(keys, chunk=1 << 8)  # below one warp
+    with pytest.raises(ValueError):
+        sort_runs.sort_chunks(keys, chunk=1 << 15)
+    launches = sort_runs.sort_chunks.launches
+    sort_runs.sort_chunks(keys)  # a CPU tensor runs the plain version
+    assert sort_runs.sort_chunks.launches == launches
