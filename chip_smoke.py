@@ -13,8 +13,15 @@ with the table resident on the card (the walk, the Dijkstra sweeps and
 the NNLS refinement on the card), then ``find_report``, each timed
 beside the port's host path (``--device host``). Then a 400-target
 catalog on the card against the host path, warm through ``run_catalog``
-and cold through the CLI (table load and upload included), and the
-five bundled golden cases with a CUDA table. Every phase prints one
+and cold through the CLI (table load and upload included). Then the
+scale-out layer on an NCCL group of one process (``sharded``: the
+sharded count of a 2^28-base prefix against the single-device stream,
+the sharded table's routed and broadcast lookups against the resident
+table, one full step on a 1x1 mesh against its host recomputation),
+``cohort`` under torchrun on the 9 catalog targets against the FASTQ,
+its counted table and a fixture (reports equal to the port's pipe and to
+a ``--device host`` cohort), and the five bundled golden cases with a
+CUDA table. Every phase prints one
 line; any failure raises and the exit code is non-zero. Needs no JAX.
 The last line is
 
@@ -50,6 +57,10 @@ NPM1_COVERAGE = 200
 FLANK = 100
 CATALOG_TARGETS = 400
 CATALOG_SAMPLE = "03H116_ITD"
+SHARDED_BASES = 1 << 28
+SHARDED_QUERIES = 1 << 22
+FULL_STEP_QUERIES = 1 << 20
+COHORT_TIMEOUT_S = 600
 GOLDEN = {
     "NPM1": ("NPM1_4ins_exons_10-11utr", "02H025_NPM1"),
     "FLT3_ITD": ("FLT3-ITD_exons_13-15", "03H116_ITD"),
@@ -359,21 +370,29 @@ def phase_find_mutation(device, workdir: str, table: str) -> dict:
                 phases_s=times, calls=calls, walk=walk)
 
 
+def prefix_batches(fastq: str, n_bases: int):
+    """The sample's first n_bases as parsed (codes, valid) batches, with
+    ``-Q +`` as the count phase reads it; returns (batches, bases)."""
+    from km_tpu.io.fastq import read_batches
+
+    batches, total = [], 0
+    for codes, valid in read_batches([fastq], min_quality="+"):
+        take = min(len(codes), n_bases - total)
+        batches.append((codes[:take], valid[:take]))
+        total += take
+        if total >= n_bases:
+            break
+    return batches, total
+
+
 def phase_count_slice(device, fastq: str) -> dict:
     """A 2^24-base slice of the sample counted by the port and by
     km_tpu's numpy spec: identical keys and counts."""
-    from km_tpu.io.fastq import read_batches
     from km_tpu.ops.count import count_batches_host
 
     from km_tpu_torch.ops.count import count_batches_device_stream
 
-    batches, total = [], 0
-    for codes, valid in read_batches([fastq], min_quality="+"):
-        take = min(len(codes), (1 << 24) - total)
-        batches.append((codes[:take], valid[:take]))
-        total += take
-        if total >= 1 << 24:
-            break
+    batches, total = prefix_batches(fastq, 1 << 24)
     hk, hc = count_batches_host(iter(batches), K, min_count=1)
     dk, dc = count_batches_device_stream(iter(batches), K, min_count=1,
                                          capacity=1 << 25, device=device)
@@ -484,6 +503,265 @@ def phase_catalog_device(device, workdir: str, counted_table: str) -> dict:
     return dict(fixture=fixture, counted=counted_run)
 
 
+def kernel_launches() -> dict:
+    from km_tpu_torch.ops import pack, sort_runs
+
+    return {"pack": pack.pack_canonical_windows.launches,
+            "sort_runs": sort_runs.sort_chunks_runs.launches}
+
+
+def reset_launches() -> None:
+    from km_tpu_torch.ops import pack, sort_runs
+
+    pack.pack_canonical_windows.launches = 0
+    sort_runs.sort_chunks_runs.launches = 0
+
+
+def check_launches(launches: dict, what: str) -> dict:
+    if min(launches.values()) == 0:
+        raise AssertionError("%s: a kernel of the path was not launched: %s"
+                             % (what, launches))
+    return launches
+
+
+def lookup_queries(host, boundaries, n: int):
+    """About n queries: present keys, their reverse complements, random
+    absent keys, the table's ends and the shard boundaries."""
+    from km_tpu.ops import encode
+
+    rng = np.random.default_rng(5)
+    present = host.keys[rng.integers(0, len(host.keys), n // 4)]
+    ends = np.concatenate([host.keys[[0, -1]], boundaries])
+    absent = rng.integers(0, 1 << (2 * K), n // 2 - len(ends),
+                          dtype=np.uint64)
+    return np.concatenate([present, encode.revcomp(present, K), absent,
+                           ends])
+
+
+def host_full_step(host, codes, valid, queries, ratio=0.05, n_cutoff=5):
+    """full_step recomputed with km_tpu's numpy counter and host table:
+    (run keys, run counts, tip counts, child mask)."""
+    from km_tpu.ops import encode
+    from km_tpu.ops.count import count_batches_host
+
+    keys, counts = count_batches_host(iter([(codes, valid)]), K,
+                                      min_count=1)
+    tips = host.query_packed(queries)
+    children = host.query_packed(encode.child_keys_forward(queries, K))
+    thr = np.maximum(children.sum(-1, keepdims=True).astype(np.float64)
+                     * ratio, float(n_cutoff))
+    return keys, counts.astype(np.int64), tips, children >= thr
+
+
+def phase_sharded(device, workdir: str, fastq: str) -> dict:
+    """The scale-out layer on one card: an NCCL group of one process.
+    sharded_count over a 2^28-base prefix of the sample against the
+    single-device stream; the sharded table's routed and broadcast
+    lookups against DeviceCountTable; full_step on a 1x1 (reads, shard)
+    mesh against its host recomputation. All exact."""
+    import torch
+    import torch.distributed as dist
+
+    from km_tpu.models.table import CountTable
+
+    from km_tpu_torch.device import to_device_keys, to_host_keys
+    from km_tpu_torch.ops.count import count_batches_device_stream
+    from km_tpu_torch.ops.device_table import DeviceCountTable
+    from km_tpu_torch.parallel import distributed
+    from km_tpu_torch.parallel.pipeline_step import full_step
+    from km_tpu_torch.parallel.sharded_table import (ShardedCountTable,
+                                                     sharded_count)
+    from km_tpu_torch.tools.count import CHUNK
+
+    out = {}
+    batches, bases = prefix_batches(fastq, SHARDED_BASES)
+    torch.cuda.set_device(device)
+    dist.init_process_group(
+        "nccl", init_method="file://" + os.path.join(workdir, "nccl_store"),
+        rank=0, world_size=1)
+    try:
+        reset_launches()
+        stats = {}
+        t0 = time.perf_counter()
+        keys, counts = sharded_count(iter(batches), K, min_count=2,
+                                     chunk=CHUNK["cuda"], device=device,
+                                     stats=stats)
+        out["sharded_count_s"] = time.perf_counter() - t0
+        out["launches"] = check_launches(kernel_launches(), "sharded_count")
+        t0 = time.perf_counter()
+        want_k, want_c = count_batches_device_stream(
+            iter(batches), K, min_count=2, chunk=CHUNK["cuda"],
+            capacity=1 << 26, device=device)
+        out["single_device_count_s"] = time.perf_counter() - t0
+        if not (np.array_equal(keys, want_k)
+                and np.array_equal(counts, want_c)):
+            raise AssertionError("sharded_count differs from "
+                                 "count_batches_device_stream")
+        out.update(bases=bases, distinct=len(keys), steps=stats["steps"],
+                   runs_per_owner=stats["runs_sent"],
+                   exchange_s=stats["exchange_s"], merge_s=stats["merge_s"])
+
+        host = CountTable.from_arrays(keys, counts, K, True, name="sharded",
+                                      presorted=True)
+        t0 = time.perf_counter()
+        table = ShardedCountTable(host, device=device)
+        out["table_build_s"] = time.perf_counter() - t0
+        ref = DeviceCountTable.from_host(host, device=device)
+        q = to_device_keys(lookup_queries(
+            host, to_host_keys(table.boundaries), SHARDED_QUERIES), device)
+        want = ref.lookup(q)
+        for name, look in (("routed", table.lookup_routed),
+                           ("broadcast", table.lookup)):
+            torch.cuda.synchronize(device)
+            t0 = time.perf_counter()
+            got = look(q)
+            torch.cuda.synchronize(device)
+            out["lookup_%s_s" % name] = time.perf_counter() - t0
+            if not torch.equal(got, want):
+                raise AssertionError("lookup %s differs from DeviceCountTable "
+                                     "on %d of %d queries"
+                                     % (name, int((got != want).sum()),
+                                        q.numel()))
+        out.update(queries=q.numel(), hits=int((want > 0).sum()))
+
+        mesh = distributed.global_mesh("cuda", reads=1)
+        codes = np.concatenate([c for c, _ in batches])[:CHUNK["cuda"]]
+        valid = np.concatenate([v for _, v in batches])[:CHUNK["cuda"]]
+        rng = np.random.default_rng(6)
+        tips = np.concatenate([
+            host.keys[rng.integers(0, len(host.keys), FULL_STEP_QUERIES // 2)],
+            rng.integers(0, 1 << (2 * K), FULL_STEP_QUERIES // 2,
+                         dtype=np.uint64)])
+        t0 = time.perf_counter()
+        got = full_step(mesh, torch.from_numpy(codes).to(device),
+                        torch.from_numpy(valid).to(device), table,
+                        to_device_keys(tips, device))
+        torch.cuda.synchronize(device)
+        out["full_step_s"] = time.perf_counter() - t0
+        got = [to_host_keys(got[0])] + [t.cpu().numpy() for t in got[1:]]
+        for name, g, w in zip(("run keys", "run counts", "tips", "child mask"),
+                              got, host_full_step(host, codes, valid, tips)):
+            if not np.array_equal(g, w):
+                raise AssertionError("full_step %s differ from the host "
+                                     "recomputation" % name)
+        out.update(full_step_runs=len(got[0]),
+                   full_step_children_kept=int(got[3].sum()))
+    finally:
+        dist.destroy_process_group()
+    return out
+
+
+def report_tree(root: str) -> dict:
+    """{relative path: text} of every report under root."""
+    files = {}
+    for base, _dirs, names in os.walk(root):
+        for name in names:
+            path = os.path.join(base, name)
+            with open(path) as f:
+                files[os.path.relpath(path, root)] = f.read()
+    return files
+
+
+def pipe_report(device, target: str, sample: str, workdir: str) -> str:
+    """``find_mutation --batch | find_report -t target`` through the
+    port's CLI."""
+    fm, _ = run_cli(["find_mutation", "--batch", "--device", device.type,
+                     target, sample])
+    path = os.path.join(workdir, "pipe.find_mutation.tsv")
+    with open(path, "w") as f:
+        f.write(fm)
+    report, _ = run_cli(["find_report", "-t", target, path])
+    return report
+
+
+def phase_cohort(device, workdir: str, fastq: str, counted_table: str
+                 ) -> dict:
+    """``cohort`` under torchrun (one process, NCCL) on the catalog
+    against three samples: the 2^30-base FASTQ, its counted table and
+    the 03H116_ITD fixture. The FASTQ's reports equal the table's; a
+    --device host cohort over the two tables gives the same files; two
+    pairs equal the port's find_mutation | find_report pipe."""
+    import re
+
+    from km_tpu.refdata import catalog_dir, catalog_fa, jf_path
+
+    cat = catalog_dir("GRCh38")
+    n_targets = len(os.listdir(cat))
+    # distinct names: a sample's reports go to <outdir>/<its base name>
+    reads = os.path.join(workdir, "cohort_reads.fastq")
+    table = os.path.join(workdir, "cohort_table.npz")
+    os.symlink(fastq, reads)
+    os.symlink(counted_table, table)
+    fixture = jf_path(CATALOG_SAMPLE)
+    out_dir = os.path.join(workdir, "cohort_" + device.type)
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "torch.distributed.run", "--standalone",
+         "--nproc_per_node=1", "-m", "km_tpu_torch", "cohort", "-t", cat,
+         "-o", out_dir, "--device", device.type, "-L", "2", "-Q", "+",
+         reads, table, fixture],
+        cwd=REPO, env=dict(os.environ, PYTHONPATH=REPO),
+        capture_output=True, text=True, timeout=COHORT_TIMEOUT_S)
+    wall_s = time.perf_counter() - t0
+    if proc.returncode:
+        raise AssertionError("torchrun cohort exited %d:\n%s"
+                             % (proc.returncode, proc.stderr[-4000:]))
+    per_sample = {m[0]: dict(seconds=float(m[1]), table=float(m[2]),
+                             catalog=float(m[3]), reports=float(m[4]))
+                  for m in re.findall(
+                      r"cohort: (\S+) -> \d+ targets in \S+ \(([\d.]+) s: "
+                      r"table ([\d.]+), catalog ([\d.]+), reports ([\d.]+)\)",
+                      proc.stderr)}
+    m = re.search(r"done in ([\d.]+)s .*kernel launches: pack (\d+), "
+                  r"sort_runs (\d+)", proc.stderr)
+    if m is None or len(per_sample) != 3:
+        raise AssertionError("cohort's summary lines are missing:\n%s"
+                             % proc.stderr[-4000:])
+    launches = check_launches({"pack": int(m[2]), "sort_runs": int(m[3])},
+                              "cohort")
+    command_s = float(m[1])
+
+    files = report_tree(out_dir)
+    names = {"cohort_reads", "cohort_table", CATALOG_SAMPLE}
+    if len(files) != 3 * n_targets or \
+            {p.split(os.sep)[0] for p in files} != names:
+        raise AssertionError("expected %d report files for %s, got %s"
+                             % (3 * n_targets, sorted(names), sorted(files)))
+    for path, text in files.items():
+        sample, target = path.split(os.sep)
+        if sample == "cohort_reads":
+            # the Sample column names the sample as given
+            want = files[os.path.join("cohort_table", target)]
+            if text.replace(reads, table) != want:
+                raise AssertionError("%s differs from the counted table's "
+                                     "report" % path)
+
+    host_dir = os.path.join(workdir, "cohort_host")
+    t0 = time.perf_counter()
+    run_cli(["cohort", "-t", cat, "-o", host_dir, "--device", "host",
+             table, fixture])
+    host_s = time.perf_counter() - t0
+    host_files = report_tree(host_dir)
+    if host_files != {p: t for p, t in files.items()
+                      if not p.startswith("cohort_reads")}:
+        raise AssertionError("--device host cohort differs from the card's")
+
+    pairs = [(CATALOG_SAMPLE, fixture, "FLT3-ITD_exons_13-15"),
+             ("cohort_table", table, NPM1_TARGET)]
+    for sample_name, sample, target in pairs:
+        if pipe_report(device, catalog_fa(target), sample, workdir) != \
+                files[os.path.join(sample_name, target + ".tsv")]:
+            raise AssertionError("cohort %s x %s differs from the pipe"
+                                 % (sample_name, target))
+    variants = sum(1 for text in files.values()
+                   for line in text.splitlines()[1:]
+                   if line.split("\t")[3] != "Reference")
+    return dict(wall_s=wall_s, command_s=command_s, per_sample_s=per_sample,
+                host_cohort_s=host_s,
+                files=len(files), variant_rows=variants, launches=launches,
+                pipes_matched=len(pairs))
+
+
 def phase_golden(device) -> dict:
     from km_tpu.refdata import DATA_DIR, catalog_fa, jf_path
 
@@ -521,7 +799,6 @@ def main(argv=None) -> int:
     from km_tpu import native
     from km_tpu_torch import _build
     from km_tpu_torch.device import resolve_device
-    from km_tpu_torch.ops import pack, sort_runs
 
     device = resolve_device("cuda:0")
     smi = subprocess.run(
@@ -549,21 +826,23 @@ def main(argv=None) -> int:
     workdir = tempfile.mkdtemp(prefix="km_tpu_torch_smoke_")
     try:
         # the main path: count, then find_mutation --batch | find_report
-        pack.pack_canonical_windows.launches = 0
-        sort_runs.sort_chunks_runs.launches = 0
+        reset_launches()
         counted = phase_count(device, workdir, opts.log2_bases, opts.seed)
         say("count", **counted)
         say("find_mutation",
             **phase_find_mutation(device, workdir, counted["table"]))
-        launches = {"pack": pack.pack_canonical_windows.launches,
-                    "sort_runs": sort_runs.sort_chunks_runs.launches}
+        launches = check_launches(kernel_launches(), "main")
         say("launches", **launches)
-        if min(launches.values()) == 0:
-            raise AssertionError("a kernel of the path was not launched: "
-                                 "%s" % launches)
         say("count_slice", **phase_count_slice(device, counted["fastq"]))
         say("catalog_device", **phase_catalog_device(device, workdir,
                                                      counted["table"]))
+        # the scale-out paths: the sharded layer in-process, then cohort
+        # under torchrun; each reads its own kernel launches
+        sharded = phase_sharded(device, workdir, counted["fastq"])
+        say("sharded", **sharded)
+        cohort = phase_cohort(device, workdir, counted["fastq"],
+                              counted["table"])
+        say("cohort", **cohort)
         before = device_calls()
         golden = phase_golden(device)
         say("golden", calls=check_device_calls(before, "golden"), **golden)
@@ -581,11 +860,16 @@ def main(argv=None) -> int:
                 "sort_chunks": "km_tpu/ops/pallas_sort.py:68"}
     sources = {"pack": "pack", "sort_runs": "sort_runs",
                "sort_chunks": "sort_runs"}
+    by_path = {name: {"main": launches[name],
+                      "sharded": sharded["launches"][name],
+                      "cohort": cohort["launches"][name]}
+               for name in ("pack", "sort_runs")}
     report = [dict(name=name, route="cuda",
                    source="km_tpu_torch/csrc/%s.cu" % sources[name],
                    replaces=replaces[name],
-                   path="none" if name == "sort_chunks" else "main",
+                   path=",".join(by_path.get(name, ["none"])),
                    launches=launches[name],
+                   launches_by_path=by_path.get(name, {}),
                    max_abs_err=m["max_abs_err"], ms=m["ms"],
                    plain_ms=m["plain_ms"])
               for name, m in kernels.items()]

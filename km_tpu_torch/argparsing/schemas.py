@@ -1,21 +1,23 @@
 """Subcommand argument definitions.
 
 find_mutation, find_report, linear_kmin and min_cov take km_tpu's
-arguments (which mirror km's). The port's own choice is ``--device``:
+arguments (which mirror km's), and cohort takes km_tpu's plus
+``--device``. The port's own choice is ``--device``:
 'cuda' (the default) runs on the card, 'cpu' runs the port's plain
 torch versions on CPU tensors, 'host' runs km_tpu's numpy spec.
 """
 
 from __future__ import annotations
 
+from km_tpu.argparsing import schemas as km_tpu_schemas
 from km_tpu.argparsing.schemas import (add_find_mutation_args,
                                        add_find_report_args,
                                        add_linear_kmin_args,
                                        add_min_cov_args)
 
-__all__ = ["add_count_args", "add_device_arg", "add_find_mutation_args",
-           "add_find_report_args", "add_linear_kmin_args",
-           "add_min_cov_args"]
+__all__ = ["add_cohort_args", "add_count_args", "add_device_arg",
+           "add_find_mutation_args", "add_find_report_args",
+           "add_linear_kmin_args", "add_min_cov_args"]
 
 DEVICES = ("cuda", "cpu", "host")
 
@@ -50,3 +52,8 @@ def add_count_args(parser):
     parser.add_argument(
         "reads_fn", nargs="+",
         help="FASTQ/FASTA read files (optionally .gz)")
+
+
+def add_cohort_args(parser):
+    km_tpu_schemas.add_cohort_args(parser)
+    add_device_arg(parser, "counting raw-read samples and the catalog")

@@ -1,9 +1,11 @@
 """km_tpu_torch command-line interface.
 
-Subcommands: ``count`` (reads -> count table on the card),
-``find_mutation`` (``--batch`` walks every target against the torch
-table), and km_tpu's own ``find_report``, ``linear_kmin`` and
-``min_cov``. ``cohort`` is not ported yet.
+Subcommands: ``count`` (reads -> count table on the card, sharded over
+the processes under torchrun), ``find_mutation`` (``--batch`` walks
+every target against the torch table), ``cohort`` (every target against
+every sample, one report file per pair; processes under torchrun split
+the samples), and km_tpu's own ``find_report``, ``linear_kmin`` and
+``min_cov``.
 """
 
 from __future__ import annotations
@@ -58,6 +60,14 @@ def main(argv=None):
     from .tools.count import main_count
     sub.set_defaults(func=main_count)
     schemas.add_count_args(sub)
+
+    sub = subparsers.add_parser(
+        "cohort",
+        help="Run every target of a catalog against every sample (count "
+             "tables or raw reads): one find_report file per pair.")
+    from .tools.cohort import main_cohort
+    sub.set_defaults(func=main_cohort)
+    schemas.add_cohort_args(sub)
 
     if argv is None:
         argv = sys.argv[1:]

@@ -8,7 +8,16 @@ on CPU tensors, and ``host`` is km_tpu's numpy spec. There is no size
 rule that moves small inputs elsewhere: the device asked for is used, or
 the run fails.
 
-Not ported yet: the multi-device mesh branch and ``--mode chunked``.
+Under torchrun with more than one process (``python -m
+torch.distributed.run --nproc_per_node=N -m km_tpu_torch count ...``),
+every process reads the same files and counts every N-th chunk on its own
+device, the runs go to the process that owns their key range
+(parallel.sharded_table.sharded_count), and the first process writes the
+table. This is the port's form of km_tpu's multi-device branch
+(km_tpu/tools/count.py:54-70). With one process the single-device stream
+runs.
+
+Not ported: ``--mode chunked``.
 """
 
 from __future__ import annotations
@@ -16,12 +25,15 @@ from __future__ import annotations
 import sys
 import time
 
+import torch.distributed as dist
+
 from km_tpu.io.fastq import read_batches
 from km_tpu.models.table import CountTable
 from km_tpu.ops.count import count_batches_host
 
 from ..device import resolve_device
 from ..ops.count import CountCapacityOverflow, count_batches_device_stream
+from ..parallel import distributed
 
 # bases per uploaded chunk; the CPU runs the plain versions, where a
 # smaller chunk keeps the temporaries small
@@ -31,18 +43,29 @@ START_CAPACITY = 1 << 22
 
 def count_read_files(paths, k: int, canonical: bool = True,
                      min_count: int = 2, min_quality=None,
-                     device: str = "cuda", stats=None):
+                     device: str = "cuda", stats=None, group=None):
     """Count k-mers of read files on ``device`` ('cuda', 'cpu' or
     'host'); returns host (keys uint64, counts uint32).
 
     On accumulator overflow the files are re-read with four times the
     capacity (counting is stateless, so the retry is exact), starting
     from 2^22 slots as km_tpu does. ``stats``, a dict, receives the
-    stream's numbers and the number of retries."""
+    stream's numbers and the number of retries.
+
+    With a process ``group``, every rank of it calls this alike and the
+    count is sharded over the group on each rank's own device; the
+    group's first rank gets the table, the others None."""
     batches = read_batches(paths, min_quality=min_quality)
     if device == "host":
         return count_batches_host(batches, k, canonical=canonical,
                                   min_count=min_count)
+    if group is not None:
+        from ..parallel.sharded_table import sharded_count
+
+        dev = distributed.local_device(device)
+        return sharded_count(batches, k, group=group, canonical=canonical,
+                             min_count=min_count, chunk=CHUNK[dev.type],
+                             device=dev, stats=stats)
     dev = resolve_device(device)
     capacity = START_CAPACITY
     retries = 0
@@ -66,13 +89,22 @@ def count_read_files(paths, k: int, canonical: bool = True,
 
 def main_count(args, argparser):
     """Returns a dict of the run's numbers (seconds, distinct k-mers,
-    and for a device run the stream's stats)."""
+    and for a device run the stream's stats). With more than one
+    process (a live process group; under torchrun this opens it) the
+    count is sharded over them and only the first writes the table."""
     t0 = time.time()
     stats: dict = {}
-    keys, counts = count_read_files(
-        args.reads_fn, args.k, canonical=args.canonical,
-        min_count=args.min_count, min_quality=args.min_quality,
-        device=args.device, stats=stats)
+    with distributed.session(args.device):
+        group = (dist.group.WORLD if distributed.process_count() > 1
+                 else None)
+        writer = distributed.process_index() == 0
+        out = count_read_files(
+            args.reads_fn, args.k, canonical=args.canonical,
+            min_count=args.min_count, min_quality=args.min_quality,
+            device=args.device, stats=stats, group=group)
+    if not writer:
+        return stats
+    keys, counts = out
     table = CountTable.from_arrays(keys, counts, args.k, args.canonical,
                                    name=args.output, presorted=True)
     table.save(args.output)

@@ -132,11 +132,17 @@ def test_port_main_path_never_loads_jax(tmp_path):
     code = (
         "import sys\n"
         "from km_tpu_torch import cli\n"
+        "import km_tpu_torch.parallel.distributed\n"
+        "import km_tpu_torch.parallel.sharded_table\n"
+        "import km_tpu_torch.parallel.pipeline_step\n"
+        "import km_tpu_torch.tools.cohort\n"
         "cli.main(['count', '--device', 'cpu', '-k', '31', '-o', %r, %r])\n"
         "cli.main(['find_mutation', '--batch', '--device', 'cpu', %r, %r])\n"
+        "cli.main(['cohort', '--device', 'cpu', '-t', %r, '-o', %r, %r])\n"
         "assert 'jax' not in sys.modules, sorted(m for m in sys.modules "
         "if m.startswith('jax'))\n"
-        "print('NO_JAX')\n" % (table, fq, target, table))
+        "print('NO_JAX')\n" % (table, fq, target, table, target,
+                                str(tmp_path / "cohort"), table))
     env = dict(os.environ, PYTHONPATH=REPO)
     proc = subprocess.run([sys.executable, "-c", code], cwd=str(tmp_path),
                           env=env, capture_output=True, text=True,
@@ -144,6 +150,9 @@ def test_port_main_path_never_loads_jax(tmp_path):
     assert proc.returncode == 0, proc.stderr
     assert "NO_JAX" in proc.stdout
     assert "Insertion" in proc.stdout
+    # find_report names the planted insertion I&I (it sits in a repeat)
+    assert "\tI&I\t" in (tmp_path / "cohort" / "sample" /
+                         "target.tsv").read_text()
 
 
 def test_cuda_without_a_card_raises(tmp_path):
