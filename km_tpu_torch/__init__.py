@@ -5,11 +5,12 @@ reads are counted on the card (hand-written CUDA kernels: the window
 pack and the chunk sort with run detection), the count table stays
 resident on the card, and ``find_mutation --batch`` runs the walk of
 every target, the Dijkstra sweeps and the NNLS refinement there;
-``find_report`` is km_tpu's own.
+``find_report`` reformats the rows.
 
-km's semantics live in km_tpu's host modules (io, models, the host half
-of ops.count, tools.find_report), which import no JAX; this package
-imports them and never imports ``jax``.
+The package stands alone: km's semantics on the host (io, native,
+models, the host half of ops.count, tools.find_report) are its own
+numpy copies of km_tpu's modules, held equal to them by the CPU tests.
+Nothing here imports ``km_tpu`` or ``jax``.
 """
 
 __version__ = "0.1.0"

@@ -1,1 +1,2 @@
-"""Argument schemas of the port's CLI: km_tpu's, plus ``--device``."""
+"""Argument schemas of the port's CLI: a copy of km_tpu's, plus
+``--device``."""

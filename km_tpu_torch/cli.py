@@ -4,8 +4,8 @@ Subcommands: ``count`` (reads -> count table on the card, sharded over
 the processes under torchrun), ``find_mutation`` (``--batch`` walks
 every target against the torch table), ``cohort`` (every target against
 every sample, one report file per pair; processes under torchrun split
-the samples), and km_tpu's own ``find_report``, ``linear_kmin`` and
-``min_cov``.
+the samples), and ``find_report``, ``linear_kmin`` and ``min_cov``.
+Nothing here imports km_tpu.
 """
 
 from __future__ import annotations
@@ -35,7 +35,7 @@ def main(argv=None):
         "find_report",
         help="Parse find_mutation output and reformat it in a more "
              "user-friendly tabulated file.")
-    from km_tpu.tools.find_report import main_find_report
+    from .tools.find_report import main_find_report
     sub.set_defaults(func=main_find_report)
     schemas.add_find_report_args(sub)
 
@@ -43,13 +43,13 @@ def main(argv=None):
         "linear_kmin",
         help="Find min k-length to decompose a target sequence in a "
              "linear graph.")
-    from km_tpu.tools.linear_kmin import main_linear_kmin
+    from .tools.linear_kmin import main_linear_kmin
     sub.set_defaults(func=main_linear_kmin)
     schemas.add_linear_kmin_args(sub)
 
     sub = subparsers.add_parser(
         "min_cov", help="Compute coverage of target sequences.")
-    from km_tpu.tools.min_cov import main_min_cov
+    from .tools.min_cov import main_min_cov
     sub.set_defaults(func=main_min_cov)
     schemas.add_min_cov_args(sub)
 

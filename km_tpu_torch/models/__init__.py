@@ -1,2 +1,3 @@
-"""The batched catalog pipeline over the torch count table. The rest of
-the engine (finder, walk, pathfinder, quant, classify) is km_tpu's."""
+"""The batched catalog pipeline over the torch count table. The host
+engine it splices into (table, sequence, finder, walk, pathfinder, quant,
+classify) is the port's numpy copy of km_tpu's."""

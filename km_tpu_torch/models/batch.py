@@ -5,10 +5,11 @@ device programs run on the table's device, as km_tpu's do on its
 accelerator: the walk (ops.batch_walk.device_discover), the Dijkstra
 sweeps of every target's graph (ops.pathgraph) and the NNLS refinement
 of every quantification problem (ops.nnls). Graph building, path
-splicing, classification and row output reuse km_tpu's host modules per
-target. ``walk='host'`` keeps the host-orchestrated frontier walk, in
-which every active walklet advances one step per round and each round's
-child lookups resolve in one batched call on the table's device.
+splicing, classification and row output run in the port's host modules
+(models/{finder,pathfinder,quant,classify}.py) per target.
+``walk='host'`` keeps the host-orchestrated frontier walk, in which
+every active walklet advances one step per round and each round's child
+lookups resolve in one batched call on the table's device.
 """
 
 from __future__ import annotations
@@ -17,13 +18,12 @@ import sys
 
 import numpy as np
 
-from km_tpu.models.finder import VariantFinder
-from km_tpu.models.sequence import TargetSeq
-from km_tpu.models.walk import NodeBudgetExceeded
-
 from ..device import to_device_keys, to_host_keys
 from ..ops.device_table import DeviceCountTable
 from ..utils import profiling
+from .finder import VariantFinder
+from .sequence import TargetSeq
+from .walk import NodeBudgetExceeded
 
 
 class _BatchLookup:

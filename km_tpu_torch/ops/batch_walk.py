@@ -60,8 +60,7 @@ import weakref
 import numpy as np
 import torch
 
-from km_tpu.models.walk import NodeBudgetExceeded
-
+from ..models.walk import NodeBudgetExceeded
 from ..utils import graphs as cuda_graphs
 
 TGT_SENTINEL = 0x7FFFFFF

@@ -2,8 +2,9 @@
 
 Replaces the device half of km_tpu/ops/count.py (count_chunk_device,
 sum_runs_device, merge_accum_device, count_batches_device_stream). The
-host half (count_batches_host, chunk_stream, merge_runs) is km_tpu's
-own and is imported, not copied.
+host half (window_valid, count_batches_host, merge_runs, chunk_stream,
+_coalesce_batches) is the port's copy of km_tpu's numpy code, held equal
+to it by the CPU tests.
 
 Per fixed-size chunk of read bases, uploaded as codes and flags:
   pack_canonical_windows (CUDA kernel)  -> one int64 key per position
@@ -28,14 +29,111 @@ import time
 import numpy as np
 import torch
 
-from km_tpu.ops.count import _coalesce_batches, chunk_stream
-
 from ..device import SENTINEL, check_k, i64_to_u64, resolve_device
+from . import encode
 from .pack import pack_canonical_windows
 from .sort_runs import CHUNK, sort_chunks_runs
 
 # the running maximum is read every this many chunks, and at the end
 OVERFLOW_CHECK_EVERY = 16
+
+
+# ---------------------------------------------------------------------------
+# host (numpy) spec
+
+
+def window_valid(valid: np.ndarray, k: int) -> np.ndarray:
+    """valid[i:i+k].all() for every window, via prefix sums."""
+    cnt = np.concatenate([[0], np.cumsum(valid.astype(np.int64))])
+    return (cnt[k:] - cnt[:-k]) == k
+
+
+def count_batches_host(batches, k: int, canonical: bool = True,
+                       min_count: int = 1):
+    """Count k-mers over (codes, valid) batches on the host."""
+    acc_keys = np.empty(0, dtype=np.uint64)
+    acc_counts = np.empty(0, dtype=np.int64)
+    for codes, valid in batches:
+        if codes.size < k:
+            continue
+        keys = encode.pack_code_windows(codes, k)
+        keys = keys[window_valid(valid, k)]
+        if canonical:
+            keys = encode.canonical(keys, k)
+        uk, uc = np.unique(keys, return_counts=True)
+        acc_keys, acc_counts = merge_runs(acc_keys, acc_counts, uk, uc)
+    keep = acc_counts >= min_count
+    return acc_keys[keep], acc_counts[keep].astype(np.uint32)
+
+
+def merge_runs(k1, c1, k2, c2):
+    """Merge two sorted (key, count) runs, summing duplicate keys.
+    Duplicates *within* either run are collapsed too (the Pallas chunk
+    sort emits per-sort-chunk runs, so a key spanning chunks appears as
+    adjacent duplicates in one compacted device readback)."""
+    keys = np.concatenate([k1, k2])
+    counts = np.concatenate([c1.astype(np.int64), c2.astype(np.int64)])
+    if not len(keys):
+        return keys, counts
+    order = np.argsort(keys, kind="stable")
+    keys, counts = keys[order], counts[order]
+    new_run = np.empty(len(keys), dtype=bool)
+    new_run[0] = True
+    new_run[1:] = keys[1:] != keys[:-1]
+    run_id = np.cumsum(new_run) - 1
+    out_keys = keys[new_run]
+    out_counts = np.zeros(len(out_keys), dtype=np.int64)
+    np.add.at(out_counts, run_id, counts)
+    return out_keys, out_counts
+
+
+def chunk_stream(batches, chunk: int, k: int):
+    """Re-chunk (codes, valid) batches into fixed ``chunk``-length pieces
+    overlapping by k-1 bases, so the pieces' windows exactly tile the
+    stream's windows (no boundary k-mer lost, none double-counted).
+    Trailing space is padded with invalid positions."""
+    stride = chunk - k + 1
+    assert stride > 0, "chunk must exceed k"
+    for codes, valid in batches:
+        n_windows = codes.size - k + 1
+        if n_windows <= 0:
+            continue
+        for off in range(0, n_windows, stride):
+            c = codes[off:off + chunk]
+            v = valid[off:off + chunk]
+            if c.size < chunk:
+                pad = chunk - c.size
+                c = np.concatenate([c, np.zeros(pad, np.uint8)])
+                v = np.concatenate([v, np.zeros(pad, bool)])
+            yield c, v
+
+
+def _coalesce_batches(batches, k: int, min_len: int):
+    """Concatenate input batches into >= min_len slabs, separated by
+    k-1 invalid positions so no window spans two batches. Without this,
+    chunk_stream pads every (often small) batch to a full chunk and the
+    device counts mostly padding."""
+    sep_c = np.zeros(k - 1, np.uint8)
+    sep_v = np.zeros(k - 1, bool)
+    parts: list = []
+    total = 0
+    for codes, valid in batches:
+        if parts:
+            parts.append((sep_c, sep_v))
+            total += k - 1
+        parts.append((codes, valid))
+        total += len(codes)
+        if total >= min_len:
+            yield (np.concatenate([p[0] for p in parts]),
+                   np.concatenate([p[1] for p in parts]))
+            parts, total = [], 0
+    if parts:
+        yield (np.concatenate([p[0] for p in parts]),
+               np.concatenate([p[1] for p in parts]))
+
+
+# ---------------------------------------------------------------------------
+# device (torch) implementation
 
 
 class CountCapacityOverflow(RuntimeError):

@@ -70,7 +70,8 @@ class DeviceCountTable:
 
     @classmethod
     def from_host(cls, table, device="cuda") -> "DeviceCountTable":
-        """From a km_tpu.models.table.CountTable."""
+        """From a host CountTable (the port's models.table, or any object
+        with its keys, counts, k, canonical and name)."""
         return cls(np.asarray(table.keys), np.asarray(table.counts),
                    table.k, table.canonical, name=table.name, device=device)
 

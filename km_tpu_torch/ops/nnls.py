@@ -29,8 +29,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from km_tpu.models.quant import build_contrib
-
+from ..models.quant import build_contrib
 from ..utils import graphs as cuda_graphs
 
 MAX_ITERS = 200_000  # safety bound; fixtures converge in < 2k iterations

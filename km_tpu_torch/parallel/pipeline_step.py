@@ -26,9 +26,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from km_tpu.models.table import CountTable
-
 from ..device import i64_to_u64, to_device_keys
+from ..models.table import CountTable
 from ..ops.device_table import child_keys
 from .distributed import READS_AXIS, SHARD_AXIS, local_device
 from .sharded_table import ShardedCountTable, count_exchange

@@ -51,12 +51,11 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
-from km_tpu.models.table import CountTable
-from km_tpu.ops.count import _coalesce_batches, chunk_stream, merge_runs
-
 from ..device import (SENTINEL, check_k, i64_to_u64, resolve_device,
                       to_device_keys, u64_to_i64)
-from ..ops.count import count_chunk_device, sum_runs_device
+from ..models.table import CountTable
+from ..ops.count import (_coalesce_batches, chunk_stream, count_chunk_device,
+                         merge_runs, sum_runs_device)
 from ..ops.device_table import canonical as canonical_keys
 from .distributed import check_backend, group_size_rank
 
@@ -122,7 +121,7 @@ class ShardedCountTable:
     """A count table cut into equal key ranges, one per rank of
     ``group`` (the world group by default), on ``device``, whose type
     must match the group's backend. Every rank builds it from the same
-    km_tpu host CountTable (keys sorted), as km_tpu's does."""
+    host CountTable (keys sorted), as km_tpu's does."""
 
     def __init__(self, host_table, group=None, device="cuda"):
         check_k(host_table.k)
@@ -279,9 +278,9 @@ def sharded_count(batches, k: int, group=None, canonical: bool = True,
                   stats=None):
     """Count k-mers over ``group``: every rank walks the same (codes,
     valid) batches and counts every S-th chunk; the runs go to their
-    owner, which merges each step's runs on the host with km_tpu's
-    merge_runs. Returns (keys uint64, counts uint32) on the group's
-    first rank, like count_batches_host, and None on the others.
+    owner, which merges each step's runs on the host with
+    ops.count.merge_runs. Returns (keys uint64, counts uint32) on the
+    group's first rank, like count_batches_host, and None on the others.
     ``stats``, a dict, receives the steps, the runs this rank sent to
     each owner, the seconds of the steps up to the readback of their
     runs (``exchange_s``: count, exchange and sum on the device) and of

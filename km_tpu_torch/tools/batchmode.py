@@ -3,8 +3,8 @@
 The pipeline runs through models.batch.run_catalog with the count table
 moved to the device the user named (``--device``, 'cuda' by default),
 where the walk, the Dijkstra sweeps and the NNLS refinement of every
-target run ('cpu' runs them on CPU tensors). 'host' keeps km_tpu's
-numpy table and host stages. Rows are the same as sequential mode's.
+target run ('cpu' runs them on CPU tensors). 'host' keeps the
+numpy table and the host stages. Rows are the same as sequential mode's.
 Replaces the reference's one-process-per-target shell loop (reference:
 example/run_leucegene.sh:29-35).
 """

@@ -17,7 +17,7 @@ The reference runs a cohort as nested shell loops, one
 - **targets** run as one batched pipeline per sample (models.batch.
   run_catalog) on the table moved to ``--device``, one runaway target
   losing only its own rows (``on_budget="skip"``);
-- **reports**: each target's rows go through km_tpu's find_report, one
+- **reports**: each target's rows go through find_report, one
   file per pair, ``<outdir>/<sample>/<target>.tsv``, as in the
   reference recipe.
 
@@ -34,18 +34,17 @@ import time
 from argparse import Namespace
 from contextlib import redirect_stdout
 
-from km_tpu.io.fasta import expand_target_files, read_target
-from km_tpu.models.quant import PathRow
-from km_tpu.models.sequence import TargetSeq
-from km_tpu.models.table import CountTable
-from km_tpu.tools.find_mutation import load_table
-from km_tpu.tools.find_report import create_report
-
+from ..io.fasta import expand_target_files, read_target
 from ..models.batch import run_catalog
+from ..models.quant import PathRow
+from ..models.sequence import TargetSeq
+from ..models.table import CountTable
 from ..ops import pack, sort_runs
 from ..parallel import distributed
 from .batchmode import prepare_table
 from .count import count_read_files
+from .find_mutation import load_table
+from .find_report import create_report
 
 
 def _table_for_sample(sample: str, args, device):

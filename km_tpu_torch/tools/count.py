@@ -4,7 +4,7 @@ Replaces the external ``jellyfish count`` step of km's pipeline
 (reference: example/run_leucegene.sh:22), as km_tpu's ``count`` does.
 ``--device cuda`` (the default) counts on the card through the two CUDA
 kernels, ``cpu`` runs the same pipeline with their plain torch versions
-on CPU tensors, and ``host`` is km_tpu's numpy spec. There is no size
+on CPU tensors, and ``host`` is the numpy spec. There is no size
 rule that moves small inputs elsewhere: the device asked for is used, or
 the run fails.
 
@@ -27,12 +27,11 @@ import time
 
 import torch.distributed as dist
 
-from km_tpu.io.fastq import read_batches
-from km_tpu.models.table import CountTable
-from km_tpu.ops.count import count_batches_host
-
 from ..device import resolve_device
-from ..ops.count import CountCapacityOverflow, count_batches_device_stream
+from ..io.fastq import read_batches
+from ..models.table import CountTable
+from ..ops.count import (CountCapacityOverflow, count_batches_device_stream,
+                         count_batches_host)
 from ..parallel import distributed
 
 # bases per uploaded chunk; the CPU runs the plain versions, where a

@@ -11,12 +11,11 @@ import os
 import sys
 import time
 
-from km_tpu.io.fasta import expand_target_files, read_target
-from km_tpu.models.finder import VariantFinder
-from km_tpu.models.quant import PathRow
-from km_tpu.models.sequence import TargetSeq
-from km_tpu.tools.find_mutation import load_table
-
+from ..io.fasta import expand_target_files, read_target
+from ..models.finder import VariantFinder
+from ..models.quant import PathRow
+from ..models.sequence import TargetSeq
+from ..models.table import CountTable
 from ..utils import profiling
 
 # km's provenance block: exactly its argument set, in its order
@@ -24,6 +23,16 @@ from ..utils import profiling
 # port's extras (--batch, --device, --profile) echo behind -vv only
 KM_KEYS = ("func", "count", "ratio", "steps", "branchs", "nodes",
            "graphical", "verbose", "debug", "target_fn", "jellyfish_fn")
+
+
+def load_table(path: str) -> CountTable:
+    """Open a count table: .jf (Jellyfish) or .npz (km_tpu's and the
+    port's own format)."""
+    if path.endswith(".npz"):
+        t = CountTable.load(path)
+        t.name = path
+        return t
+    return CountTable.from_jf(path)
 
 
 def main_find_mut(args, argparser):

@@ -15,12 +15,14 @@ import torch
 from km_tpu.io.fasta import read_target
 from km_tpu.models.sequence import TargetSeq
 from km_tpu.models.table import CountTable
-from km_tpu.models.walk import NodeBudgetExceeded, Walker
+from km_tpu.models.walk import Walker
 from km_tpu.ops import encode
 from km_tpu.ops.batch_walk import device_discover as jax_discover
 from km_tpu.ops.device_table import DeviceCountTable as JaxTable
 
+from km_tpu_torch import convert
 from km_tpu_torch.models.batch import batch_discover
+from km_tpu_torch.models.walk import NodeBudgetExceeded
 from km_tpu_torch.ops import batch_walk
 from km_tpu_torch.ops.device_table import DeviceCountTable
 
@@ -45,6 +47,13 @@ def _catalog(k):
             for fn in sorted(os.listdir(CAT))]
 
 
+def _port_table(host):
+    """The port's table on CPU tensors from km_tpu's host table, through
+    the port's own CountTable (convert: numpy arrays, no shared object)."""
+    return DeviceCountTable.from_host(convert.count_table_from_km_tpu(host),
+                                      device="cpu")
+
+
 def _orders(result):
     return [None if r is None else list(r) for r in result]
 
@@ -52,8 +61,7 @@ def _orders(result):
 def _both(mers, host, **kw):
     """(km_tpu's result, the port's result) on the same inputs."""
     want = jax_discover(mers, JaxTable.from_host(host), **kw)
-    got = batch_walk.device_discover(
-        mers, DeviceCountTable.from_host(host, device="cpu"), **kw)
+    got = batch_walk.device_discover(mers, _port_table(host), **kw)
     return want, got
 
 
@@ -100,8 +108,7 @@ def test_walker_agrees_on_catalog():
     host = CountTable.from_jf(f"{REFDATA}/jf/02H025_NPM1.jf")
     targets = _catalog(host.k)
     got = batch_walk.device_discover(
-        [t.ref_mer for t in targets],
-        DeviceCountTable.from_host(host, device="cpu"))
+        [t.ref_mer for t in targets], _port_table(host))
     for t, nodes in zip(targets, got):
         exact = Walker(host, ratio=0.05, count=5).discover(t.ref_mer)
         assert nodes == {k: exact[k] for k in nodes}
@@ -118,16 +125,15 @@ def test_node_budget_skip_and_raise():
     assert _orders(got) == _orders(want)
     assert any(r is None for r in got) and any(r is not None for r in got)
     with pytest.raises(NodeBudgetExceeded):
-        batch_walk.device_discover(
-            mers, DeviceCountTable.from_host(host, device="cpu"),
-            max_node=max_node)
+        batch_walk.device_discover(mers, _port_table(host),
+                                   max_node=max_node)
 
 
 def test_check_every_changes_nothing(monkeypatch):
     """The exit test read every round or every 8 rounds: the same
     result, since rounds past the exit change no state."""
     host = CountTable.from_jf(f"{REFDATA}/jf/03H112_IandI.jf")
-    table = DeviceCountTable.from_host(host, device="cpu")
+    table = _port_table(host)
     mers = [t.ref_mer for t in _catalog(host.k)]
     kw = dict(copy_cap=4, commit_cap=4, log_cap=8, stack_cap=16)
     monkeypatch.setattr(batch_walk, "CHECK_EVERY", 1)
@@ -143,8 +149,8 @@ def test_learned_stack_depth_is_per_table():
     """A table's walk starts at the depth that sufficed on that table
     before; another table starts at the default."""
     host = CountTable.from_jf(f"{REFDATA}/jf/02H025_NPM1.jf")
-    a = DeviceCountTable.from_host(host, device="cpu")
-    b = DeviceCountTable.from_host(host, device="cpu")
+    a = _port_table(host)
+    b = _port_table(host)
     mers = [_target("NPM1_4ins_exons_10-11utr", host.k).ref_mer]
     first = batch_walk.device_discover(mers, a)
     assert batch_walk.device_discover.stats["retries"] > 0  # 64 too shallow
@@ -184,9 +190,9 @@ def _threshold_sample():
 
 def test_float_threshold_follows_the_port_host_walk():
     target, host = _threshold_sample()
-    table = DeviceCountTable.from_host(host, device="cpu")
+    table = _port_table(host)
     got = batch_walk.device_discover([target.ref_mer], table)[0]
-    want = batch_discover([target], table)[0]
+    want = batch_discover([convert.target_from_km_tpu(target)], table)[0]
     assert got == want
     assert set(got) == set(target.ref_mer.tolist())  # the alt is not walked
     # km_tpu's float32 device threshold walks the alt path

@@ -5,27 +5,23 @@ find_report pipe; and the count and cohort commands in two gloo
 processes (the sharded count's table equals host counting; processes
 split the samples).
 
-km_tpu's CLI imports JAX, so it is imported inside the tests only: the
-spawned processes start without it.
+km_tpu is imported inside the tests only: the spawned processes import
+this module, run the port's CLI and must end with nothing of km_tpu (and
+so no JAX) loaded.
 """
 
 import os
-import sys
 
 import numpy as np
 import pytest
 import torch
 import torch.distributed as dist
 
-from km_tpu.io.fasta import read_target
-from km_tpu.io.fastq import read_batches
-from km_tpu.models.table import CountTable
-from km_tpu.ops.count import count_batches_host
-
 from km_tpu_torch import cli as tcli
+from km_tpu_torch.io.fasta import read_target
+from km_tpu_torch.refdata import DATA_DIR as REFDATA
 
-from helpers import REFDATA
-from test_torch_parallel import spawn
+from test_torch_parallel import foreign_modules, spawn
 
 torch.set_num_threads(1)
 
@@ -136,13 +132,17 @@ def _count_and_cohort(rank, world, tmp, kind="cpu"):
                "-o", f"{tmp}/table_rank{rank}.npz", f"{tmp}/reads.fastq"])
     tcli.main(["cohort", "-t", CAT, "-o", f"{tmp}/cohort", "--device",
                kind] + SAMPLES)
-    assert "jax" not in sys.modules
+    assert foreign_modules() == []
     dist.destroy_process_group()
 
 
 def _check_count_and_cohort(tmp, world, want_reports):
     """Only the first rank wrote the table, which equals host counting;
     the processes split the samples and wrote ``want_reports``."""
+    from km_tpu.io.fastq import read_batches
+    from km_tpu.models.table import CountTable
+    from km_tpu.ops.count import count_batches_host
+
     for r in range(1, world):
         assert not (tmp / ("table_rank%d.npz" % r)).exists()
     table = CountTable.load(str(tmp / "table_rank0.npz"))

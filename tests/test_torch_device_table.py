@@ -13,7 +13,7 @@ from km_tpu.ops import encode
 from km_tpu.ops.device_table import DeviceCountTable as JaxTable
 from km_tpu.ops.device_table import join_keys, split_keys
 
-from km_tpu_torch.convert import table_from_jax
+from km_tpu_torch.convert import count_table_from_km_tpu, table_from_jax
 from km_tpu_torch.device import (SENTINEL, i64_to_split, i64_to_u64,
                                  split_to_i64, to_device_keys, to_host_keys,
                                  u64_to_i64)
@@ -42,7 +42,8 @@ def _host_children(table, parents, forward):
 
 
 def _check_table(host, rng, check_jax=True):
-    port = tdt.DeviceCountTable.from_host(host, device="cpu")
+    port = tdt.DeviceCountTable.from_host(
+        count_table_from_km_tpu(host), device="cpu")
     q = _queries(host, rng)
     want = host.query_packed(q)
     np.testing.assert_array_equal(port.query_packed(q), want)
@@ -132,7 +133,8 @@ def _boundary_table(counts4):
 def test_child_threshold_is_float64(counts4, passes):
     ratio = 0.25 if passes else RATIO
     host, parent = _boundary_table(counts4)
-    port = tdt.DeviceCountTable.from_host(host, device="cpu")
+    port = tdt.DeviceCountTable.from_host(
+        count_table_from_km_tpu(host), device="cpu")
     _ck, cnt, mask = port.children(to_device_keys(parent, "cpu"), ratio,
                                    CUTOFF)
     np.testing.assert_array_equal(cnt.numpy()[0], counts4)
@@ -152,7 +154,8 @@ def test_child_threshold_is_float64(counts4, passes):
 def test_empty_table_lookup():
     host = CountTable.from_arrays(np.empty(0, np.uint64),
                                   np.empty(0, np.uint32), 31, True)
-    port = tdt.DeviceCountTable.from_host(host, device="cpu")
+    port = tdt.DeviceCountTable.from_host(
+        count_table_from_km_tpu(host), device="cpu")
     q = np.arange(10, dtype=np.uint64)
     np.testing.assert_array_equal(port.query_packed(q), np.zeros(10))
     assert port.query_packed(np.empty(0, np.uint64)).shape == (0,)
@@ -160,7 +163,8 @@ def test_empty_table_lookup():
 
 def test_query_shape_kept():
     host = CountTable.from_jf(f"{REFDATA}/jf/{SAMPLES[0]}.jf")
-    port = tdt.DeviceCountTable.from_host(host, device="cpu")
+    port = tdt.DeviceCountTable.from_host(
+        count_table_from_km_tpu(host), device="cpu")
     q = host.keys[:12].reshape(3, 4)
     out = port.query_packed(q)
     assert out.shape == (3, 4) and out.dtype == np.int64

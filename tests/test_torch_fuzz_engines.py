@@ -14,6 +14,7 @@ from km_tpu.models.sequence import TargetSeq
 from km_tpu.models.table import CountTable
 from km_tpu.ops import count as opcount
 
+from km_tpu_torch import convert
 from km_tpu_torch.models.batch import run_catalog
 from km_tpu_torch.ops.device_table import DeviceCountTable
 
@@ -61,6 +62,8 @@ def test_port_device_path_agrees_with_exact_engine(seed):
         exact.append([str(r) for r in f.sorted_rows()])
     assert any(len(rows) > 1 for rows in exact)  # variants were planted
 
-    port = run_catalog(targets, DeviceCountTable.from_host(table,
-                                                           device="cpu"))
+    port = run_catalog(
+        [convert.target_from_km_tpu(t) for t in targets],
+        DeviceCountTable.from_host(convert.count_table_from_km_tpu(table),
+                                   device="cpu"))
     assert [[str(r) for r in rows] for rows in port] == exact

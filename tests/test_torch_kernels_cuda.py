@@ -15,17 +15,16 @@ import torch
 
 import os
 
-from km_tpu.io.fasta import read_target
-from km_tpu.models.pathfinder import OverlapGraph
-from km_tpu.models.sequence import TargetSeq
-from km_tpu.models.table import CountTable
-from km_tpu.ops.count import count_batches_host
-from km_tpu.refdata import DATA_DIR, catalog_dir
-
 from km_tpu_torch.device import SENTINEL
+from km_tpu_torch.io.fasta import read_target
 from km_tpu_torch.models.batch import run_catalog
+from km_tpu_torch.models.pathfinder import OverlapGraph
+from km_tpu_torch.models.sequence import TargetSeq
+from km_tpu_torch.models.table import CountTable
 from km_tpu_torch.ops import batch_walk, count, pack, pathgraph, sort_runs
+from km_tpu_torch.ops.count import count_batches_host
 from km_tpu_torch.ops.device_table import DeviceCountTable
+from km_tpu_torch.refdata import DATA_DIR, catalog_dir
 
 KS = [2, 15, 16, 17, 21, 31]
 

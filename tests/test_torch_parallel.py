@@ -7,8 +7,9 @@ the process helpers and initialize; and the owner rule of the counting
 exchange, where km_tpu sends every run to shard 0.
 
 Each world size is one spawn of ranks that run every check and write
-their results; the tests read them. The ranks import no JAX: km_tpu's
-JAX modules are imported only inside the tests that compare with them.
+their results; the tests read them. The ranks import nothing of km_tpu
+(and so no JAX): this module's top level imports the port alone, and
+km_tpu is imported only inside the tests that compare with it.
 A test marked ``cuda`` runs the same ranks under NCCL on two or four
 cards and holds them to the gloo ranks.
 """
@@ -26,16 +27,13 @@ import torch
 import torch.distributed as dist
 import torch.multiprocessing as mp
 
-from km_tpu.models.table import CountTable
-from km_tpu.ops import encode
-from km_tpu.ops.count import count_batches_host
-
+from km_tpu_torch.models.table import CountTable as PortTable
+from km_tpu_torch.ops import encode
 from km_tpu_torch.parallel import distributed
 from km_tpu_torch.parallel.pipeline_step import demo_step
 from km_tpu_torch.parallel.sharded_table import (ShardedCountTable,
                                                  owner_of, sharded_count)
-
-from helpers import REFDATA
+from km_tpu_torch.refdata import DATA_DIR as REFDATA
 
 torch.set_num_threads(1)
 
@@ -49,6 +47,21 @@ COUNT_INPUTS = {
 }
 SAMPLES = ["s%d" % i for i in range(7)]
 SPAWN_TIMEOUT_S = 300
+
+
+def _km_tpu():
+    """(km_tpu's host CountTable, its count_batches_host), imported only
+    when a test calls this: the spawned ranks import this module too."""
+    from km_tpu.models.table import CountTable
+    from km_tpu.ops.count import count_batches_host
+
+    return CountTable, count_batches_host
+
+
+def foreign_modules():
+    """Loaded modules that the port must not pull in: km_tpu and jax."""
+    return sorted(m for m in sys.modules
+                  if m.split(".")[0] in ("km_tpu", "jax"))
 
 
 def _batch(seed, n, alphabet):
@@ -88,7 +101,7 @@ def _run_world(rank, world, tmp, kind="cpu"):
                             world_size=world)
     dev = distributed.local_device(kind)
     out = {}
-    host = CountTable.from_jf(NPM1)
+    host = PortTable.from_jf(NPM1)
     table = ShardedCountTable(host, device=dev)
     q = _lookup_queries(host)
     out["queries"] = q
@@ -127,7 +140,7 @@ def _run_world(rank, world, tmp, kind="cpu"):
     out["shards"] = np.array(distributed.local_read_shards(SAMPLES))
     out["index_count"] = np.array([distributed.process_index(),
                                    distributed.process_count()])
-    out["jax_loaded"] = "jax" in sys.modules
+    out["foreign_modules"] = np.array(foreign_modules(), dtype=str)
     dist.destroy_process_group()
     np.savez(f"{tmp}/rank{rank}.npz", **out)
 
@@ -150,7 +163,7 @@ def _km_tpu_table(n_devices):
     from km_tpu.parallel.sharded_table import ShardedCountTable as Km
     from km_tpu.parallel.sharded_table import make_mesh
 
-    return Km(CountTable.from_jf(NPM1), make_mesh(n_devices))
+    return Km(_km_tpu()[0].from_jf(NPM1), make_mesh(n_devices))
 
 
 @functools.lru_cache(maxsize=None)
@@ -175,7 +188,7 @@ def ranks(request, tmp_path_factory):
 
 def test_sharded_lookups_match_km_tpu_and_host(ranks):
     world, _tmp, res = ranks
-    host = CountTable.from_jf(NPM1)
+    host = _km_tpu()[0].from_jf(NPM1)
     q = res[0]["queries"]
     km = _km_tpu_table(8)
     want = host.query_packed(q)
@@ -199,8 +212,8 @@ def test_sharded_count_matches_km_tpu_and_host(ranks, name):
     contiguous key ranges, so no host re-sort is needed)."""
     world, _tmp, res = ranks
     seed, n, alphabet, chunks = COUNT_INPUTS[name]
-    hk, hc = count_batches_host(iter([_batch(seed, n, alphabet)]), K,
-                                canonical=True, min_count=1)
+    hk, hc = _km_tpu()[1](iter([_batch(seed, n, alphabet)]), K,
+                          canonical=True, min_count=1)
     kk, kc = _km_tpu_count(name, chunks[0], 8 if name == "wide" else 4)
     np.testing.assert_array_equal(kk, hk)
     np.testing.assert_array_equal(kc.astype(np.int64), hc.astype(np.int64))
@@ -261,6 +274,7 @@ def test_save_and_load_between_packages(ranks):
     from km_tpu.parallel.sharded_table import ShardedCountTable as Km
     from km_tpu.parallel.sharded_table import make_mesh
 
+    CountTable = _km_tpu()[0]
     host = CountTable.from_jf(NPM1)
     q = res[0]["queries"]
     want = host.query_packed(q)
@@ -309,7 +323,7 @@ def test_full_step_matches_km_tpu_demo_step(ranks):
         counts = np.concatenate([by_shard[s]["delta_counts"]
                                  for s in range(S)])
         assert (np.diff(keys.astype(np.float64)) > 0).all()
-        hk, hc = count_batches_host(
+        hk, hc = _km_tpu()[1](
             iter([(codes[r, s], np.ones(2048, bool)) for s in range(S)]),
             31, canonical=True, min_count=1)
         np.testing.assert_array_equal(keys, hk)
@@ -327,7 +341,7 @@ def test_process_helpers_and_mesh(ranks):
     world, _tmp, res = ranks
     got = []
     for r, out in enumerate(res):
-        assert not out["jax_loaded"]
+        assert list(out["foreign_modules"]) == []
         assert list(out["index_count"]) == [r, world]
         assert list(out["shards"]) == SAMPLES[r::world]
         got += list(out["shards"])
@@ -351,7 +365,7 @@ def test_initialize_without_torchrun_env_is_a_noop(monkeypatch):
             distributed.local_device("cuda")
     # no group: the sharded table refuses instead of running alone
     with pytest.raises(RuntimeError, match="no process group"):
-        ShardedCountTable(CountTable.from_jf(NPM1), device="cpu")
+        ShardedCountTable(PortTable.from_jf(NPM1), device="cpu")
 
 
 def test_initialize_failure_raises(monkeypatch):
@@ -390,6 +404,7 @@ def test_nccl_ranks_match_gloo_ranks(tmp_path):
     if n_cards < 2:
         pytest.skip("needs two or more CUDA devices")
     world = 4 if n_cards >= 4 else 2
+    CountTable, count_batches_host = _km_tpu()
     host = CountTable.from_jf(NPM1)
     res = {}
     for kind in ("cpu", "cuda"):

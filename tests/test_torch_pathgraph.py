@@ -13,6 +13,9 @@ import torch
 from km_tpu.models.pathfinder import OverlapGraph
 from km_tpu.ops.pathgraph import batched_sweeps as jax_sweeps
 
+from km_tpu_torch import convert
+from km_tpu_torch.models.finder import VariantFinder as PortFinder
+from km_tpu_torch.models.pathfinder import OverlapGraph as PortGraph
 from km_tpu_torch.ops import pathgraph
 
 from test_pathgraph import FIXTURES, _finder, _host_trees, _random_graph
@@ -25,8 +28,24 @@ torch.set_num_threads(1)
 CPU = torch.device("cpu")
 
 
+def _port_graph(g):
+    """The port's OverlapGraph with km_tpu graph ``g``'s edge writes,
+    frozen by the port's own code."""
+    p = PortGraph.__new__(PortGraph)
+    p.n_real, p.n, p.k = g.n_real, g.n, g.k
+    p.first_node, p.last_node = g.first_node, g.last_node
+    p._src = [np.array(a) for a in g._src]
+    p._dst = [np.array(a) for a in g._dst]
+    p._w = [np.array(a) for a in g._w]
+    p.freeze()
+    for name in ("succ_ptr", "succ_ids", "succ_w", "pred_ptr", "pred_ids",
+                 "pred_w"):
+        assert np.array_equal(getattr(p, name), getattr(g, name)), name
+    return p
+
+
 def _check(graphs):
-    got = pathgraph.batched_sweeps(graphs, CPU)
+    got = pathgraph.batched_sweeps([_port_graph(g) for g in graphs], CPU)
     for g, (gb, ga), (jb, ja) in zip(graphs, got, jax_sweeps(graphs)):
         hb, ha = _host_trees(g)
         assert gb.dtype == np.int32 and ga.dtype == np.int32
@@ -49,7 +68,9 @@ def test_fixture_alt_paths_equal():
     for jf, fa in FIXTURES:
         f_host = _finder(jf, fa)
         f_host.find_alt_paths()
-        f_dev = _finder(jf, fa)
+        km = _finder(jf, fa)
+        f_dev = PortFinder(convert.target_from_km_tpu(km.target),
+                           convert.count_table_from_km_tpu(km.table))
         pathgraph.batched_alt_paths([f_dev], CPU)
         assert f_dev.alt_paths == f_host.alt_paths
 
@@ -75,7 +96,7 @@ def test_forced_ties_lowest_index_wins():
         g.set_edge(j, g.last_node, 1.0)
     g.freeze()
     _check([g])
-    before, after = pathgraph.batched_sweeps([g], CPU)[0]
+    before, after = pathgraph.batched_sweeps([_port_graph(g)], CPU)[0]
     assert before[g.last_node] == 0
     assert after[g.first_node] == 0
 

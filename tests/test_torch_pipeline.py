@@ -1,7 +1,8 @@
 """The port's slice end to end on CPU tensors: the batched catalog over
 the torch table against km_tpu and the golden files, the reads-to-report
-flow through the port's CLI against km_tpu's CLI, the no-JAX guarantee,
-and the explicit-device and input checks."""
+flow through the port's CLI against km_tpu's CLI, the guarantee that no
+subcommand of the port loads km_tpu (or JAX), and the explicit-device
+and input checks."""
 
 import io
 import os
@@ -20,12 +21,13 @@ from km_tpu.io.fasta import read_target
 from km_tpu.models.batch import run_catalog as jax_run_catalog
 from km_tpu.models.sequence import TargetSeq
 from km_tpu.models.table import CountTable
-from km_tpu.tools.find_report import main_find_report
 
 from km_tpu_torch import cli as tcli
+from km_tpu_torch import convert
 from km_tpu_torch.models.batch import run_catalog
 from km_tpu_torch.ops import pack, sort_runs
 from km_tpu_torch.ops.device_table import DeviceCountTable
+from km_tpu_torch.tools.find_report import main_find_report
 
 from helpers import REFDATA, find_mutation_args, find_report_args, run_tool
 from test_golden_files import CASES, _read
@@ -50,22 +52,29 @@ def _catalog(k):
     return targets
 
 
+def _port_catalog(k):
+    """The same targets as the port's own TargetSeq objects."""
+    return [convert.target_from_km_tpu(t) for t in _catalog(k)]
+
+
 @pytest.mark.parametrize("sample", SAMPLES)
 def test_catalog_rows_match_km_tpu(sample):
     host = CountTable.from_jf(f"{REFDATA}/jf/{sample}.jf")
+    port_host = convert.count_table_from_km_tpu(host)
     want = jax_run_catalog(_catalog(host.k), host, walk="host")
-    got = run_catalog(_catalog(host.k),
-                      DeviceCountTable.from_host(host, device="cpu"))
+    got = run_catalog(_port_catalog(host.k),
+                      DeviceCountTable.from_host(port_host, device="cpu"))
     assert [[str(r) for r in rows] for rows in got] == \
         [[str(r) for r in rows] for rows in want]
     # the host table through the port's pipeline gives the same rows
-    got_host = run_catalog(_catalog(host.k), host)
+    got_host = run_catalog(_port_catalog(host.k), port_host)
     assert [[str(r) for r in rows] for rows in got_host] == \
         [[str(r) for r in rows] for rows in want]
 
 
 @pytest.mark.parametrize("case", sorted(c for c in CASES if "/" not in c))
 def test_batch_cli_matches_golden(case):
+    """find_mutation --batch and find_report, both the port's own."""
     target, jf = CASES[case]
     from km_tpu_torch.tools.find_mutation import main_find_mut
 
@@ -127,29 +136,53 @@ def test_reads_to_report_matches_km_tpu_cli(tmp_path):
 
 
 def test_port_main_path_never_loads_jax(tmp_path):
+    """Every subcommand of the port in one fresh process, and every
+    module of the package imported: afterwards no module named km_tpu,
+    km_tpu.* or jax is loaded. (The name predates the port's own host
+    modules and is kept so that the case keeps its history.)"""
     fq, target, _alt = _fastq(tmp_path)
     table = str(tmp_path / "sample.npz")
+    fm_path = str(tmp_path / "fm.tsv")
     code = (
-        "import sys\n"
+        "import contextlib, importlib, pkgutil, sys\n"
+        "import km_tpu_torch\n"
         "from km_tpu_torch import cli\n"
-        "import km_tpu_torch.parallel.distributed\n"
-        "import km_tpu_torch.parallel.sharded_table\n"
-        "import km_tpu_torch.parallel.pipeline_step\n"
-        "import km_tpu_torch.tools.cohort\n"
+        "for m in pkgutil.walk_packages(km_tpu_torch.__path__, "
+        "'km_tpu_torch.'):\n"
+        "    if not m.name.endswith('__main__'):\n"
+        "        importlib.import_module(m.name)\n"
+        "def check(what):\n"
+        "    bad = sorted(m for m in sys.modules\n"
+        "                 if m.split('.')[0] in ('km_tpu', 'jax'))\n"
+        "    assert not bad, (what, bad)\n"
+        "check('import')\n"
         "cli.main(['count', '--device', 'cpu', '-k', '31', '-o', %r, %r])\n"
-        "cli.main(['find_mutation', '--batch', '--device', 'cpu', %r, %r])\n"
+        "check('count')\n"
+        "with open(%r, 'w') as f, contextlib.redirect_stdout(f):\n"
+        "    cli.main(['find_mutation', '--batch', '--device', 'cpu', %r, "
+        "%r])\n"
+        "check('find_mutation')\n"
+        "print(open(%r).read())\n"
+        "cli.main(['find_report', '-t', %r, %r])\n"
+        "check('find_report')\n"
         "cli.main(['cohort', '--device', 'cpu', '-t', %r, '-o', %r, %r])\n"
-        "assert 'jax' not in sys.modules, sorted(m for m in sys.modules "
-        "if m.startswith('jax'))\n"
-        "print('NO_JAX')\n" % (table, fq, target, table, target,
-                                str(tmp_path / "cohort"), table))
+        "check('cohort')\n"
+        "cli.main(['linear_kmin', %r])\n"
+        "check('linear_kmin')\n"
+        "cli.main(['min_cov', %r, %r])\n"
+        "check('min_cov')\n"
+        "print('NO_KM_TPU')\n" % (table, fq, fm_path, target, table, fm_path,
+                                   target, fm_path, target,
+                                   str(tmp_path / "cohort"), table, target,
+                                   target, table))
     env = dict(os.environ, PYTHONPATH=REPO)
     proc = subprocess.run([sys.executable, "-c", code], cwd=str(tmp_path),
                           env=env, capture_output=True, text=True,
                           timeout=300)
     assert proc.returncode == 0, proc.stderr
-    assert "NO_JAX" in proc.stdout
+    assert "NO_KM_TPU" in proc.stdout
     assert "Insertion" in proc.stdout
+    assert "\tI&I\t" in proc.stdout  # find_report's row
     # find_report names the planted insertion I&I (it sits in a repeat)
     assert "\tI&I\t" in (tmp_path / "cohort" / "sample" /
                          "target.tsv").read_text()
@@ -175,15 +208,17 @@ def test_device_walk_not_ported_raises(option):
     rows; a device stage on a host table raises. (The name predates the
     device path and is kept so that the case keeps its history.)"""
     host = CountTable.from_jf(f"{REFDATA}/jf/03H116_ITD.jf")
-    table = DeviceCountTable.from_host(host, device="cpu")
+    port_host = convert.count_table_from_km_tpu(host)
+    table = DeviceCountTable.from_host(port_host, device="cpu")
     want = jax_run_catalog(_catalog(host.k), host, walk="host")
     choice = dict(walk="host", pathing="host", quant="host")
     choice[option] = "device"
-    got = run_catalog(_catalog(host.k), table, **choice)
+    got = run_catalog(_port_catalog(host.k), table, **choice)
     assert [[str(r) for r in rows] for rows in got] == \
         [[str(r) for r in rows] for rows in want]
     with pytest.raises(ValueError, match="torch DeviceCountTable"):
-        run_catalog(_catalog(host.k)[:1], host, **{option: "device"})
+        run_catalog(_port_catalog(host.k)[:1], port_host,
+                    **{option: "device"})
 
 
 def test_kernel_wrappers_check_their_inputs():
