@@ -19,6 +19,13 @@ the NNLS refinement on the card), then ``find_report``, each timed
 beside the port's host path (``--device host``). Then a 400-target
 catalog on the card against the host path, warm through ``run_catalog``
 and cold through the CLI (table load and upload included). Then the
+entry points for counting and walking at scale: ``count --mode chunked``
+through the CLI on the sample's first 2^28 bases (its table equal to
+``--mode stream``'s), ``scripts.scale_count`` (2^30 bases synthesized and
+counted on the card, every window accounted for) and
+``scripts.bigtable_walk`` (the 400-target catalog against the fixture
+united with 1e8 random below-threshold k-mers, host and device rows equal
+to the fixture-only rows). Then the
 scale-out layer on an NCCL group of one process (``sharded``: the
 sharded count of a 2^28-base prefix against the single-device stream,
 the sharded table's routed and broadcast lookups against the resident
@@ -35,7 +42,11 @@ end. The last line is
 
 ``--log2-bases`` cuts the sample (default 30), and ``--kernels-only``
 stops after the build and the kernel phases (and prints no result line),
-for a short first run after a kernel change.
+for a short first run after a kernel change. ``--compare-modes`` is a
+measurement, not a check of the smoke: after the builds it counts the
+whole sample with ``count --mode chunked`` and ``--mode stream`` in
+turns, each in a process of its own so that each has its own peak RSS,
+requires equal tables, prints the seconds, and stops.
 """
 
 from __future__ import annotations
@@ -64,6 +75,12 @@ NPM1_COVERAGE = 200
 FLANK = 100
 CATALOG_TARGETS = 400
 CATALOG_SAMPLE = "03H116_ITD"
+SCALE_CHUNKS = 64  # of 2^24 bases: scale_count's full default
+SCALE_CAPACITY = 1 << 23
+BIGTABLE_EXTRA = 100_000_000
+# one FASTQ record of write_fastq: "@r%09d\n", the read, "\n+\n", the
+# qualities, "\n"
+RECORD_BYTES = 12 + READ_LEN + 3 + READ_LEN + 1
 SHARDED_BASES = 1 << 28
 SHARDED_QUERIES = 1 << 22
 FULL_STEP_QUERIES = 1 << 20
@@ -331,8 +348,8 @@ def write_fastq(path: str, n_bases: int, seed: int) -> int:
     n_reads = n_bg + n_npm1
 
     bases = np.frombuffer(b"ACGT", np.uint8)
-    head, sep, tail = 12, 3, 1  # "@r%09d\n", "\n+\n", "\n"
-    width = head + READ_LEN + sep + READ_LEN + tail
+    head, sep = 12, 3  # "@r%09d\n", "\n+\n"
+    width = RECORD_BYTES
     qual = np.frombuffer(b"I" * READ_LEN, np.uint8)
     block = 1 << 18
     with open(path, "wb") as f:
@@ -527,31 +544,11 @@ def phase_count_slice(device, fastq: str) -> dict:
     return dict(bases=total, distinct=len(hk))
 
 
-def catalog_sequences(n_targets: int) -> list[tuple[str, str]]:
-    """The 9 GRCh38 catalog targets cycled to ``n_targets``, as
-    (sequence, name) with each name <target>_<i>."""
-    from km_tpu_torch.io.fasta import read_target
-    from km_tpu_torch.refdata import catalog_dir
-
-    cat = catalog_dir("GRCh38")
-    base = []
-    for fn in sorted(os.listdir(cat)):
-        seqs, _ = read_target(os.path.join(cat, fn))
-        base.append(("".join(seqs), os.path.splitext(fn)[0]))
-    return [(base[i % len(base)][0], "%s_%d" % (base[i % len(base)][1], i))
-            for i in range(n_targets)]
-
-
-def catalog_targets(n_targets: int, k: int):
-    from km_tpu_torch.models.sequence import TargetSeq
-
-    return [TargetSeq(seq, name, k)
-            for seq, name in catalog_sequences(n_targets)]
-
-
 def write_catalog(workdir: str, n_targets: int) -> str:
     """The cycled catalog as one FASTA file per target, in a directory
     that ``find_mutation`` takes as its target argument."""
+    from km_tpu_torch.refdata import catalog_sequences
+
     cat = os.path.join(workdir, "catalog_%d" % n_targets)
     os.makedirs(cat, exist_ok=True)
     for seq, name in catalog_sequences(n_targets):
@@ -614,7 +611,7 @@ def compare_catalog(targets, host_table, device) -> dict:
 
 def phase_catalog_device(device, workdir: str, counted_table: str) -> dict:
     from km_tpu_torch.models.table import CountTable
-    from km_tpu_torch.refdata import jf_path
+    from km_tpu_torch.refdata import catalog_targets, jf_path
 
     host = CountTable.from_jf(jf_path(CATALOG_SAMPLE))
     host.name = CATALOG_SAMPLE
@@ -648,6 +645,144 @@ def check_launches(launches: dict, what: str) -> dict:
         raise AssertionError("%s: a kernel of the path was not launched: %s"
                              % (what, launches))
     return launches
+
+
+def peak_rss_mb() -> float:
+    import resource
+
+    return resource.getrusage(resource.RUSAGE_SELF).ru_maxrss / 1024
+
+
+def phase_count_chunked(device, workdir: str, fastq: str) -> dict:
+    """``count --mode chunked`` through the CLI on the sample's first
+    2^28 read bases (whole reads, cut from the FASTQ by its fixed record
+    width), against ``--mode stream`` on the same file: equal keys and
+    counts in the two table files. One launch of each kernel per chunk."""
+    from km_tpu_torch.models.table import CountTable
+
+    n_reads = min(SHARDED_BASES // READ_LEN,
+                  os.path.getsize(fastq) // RECORD_BYTES)
+    prefix = os.path.join(workdir, "prefix.fastq")
+    with open(fastq, "rb") as src, open(prefix, "wb") as dst:
+        left = n_reads * RECORD_BYTES
+        while left:
+            block = src.read(min(left, 1 << 26))
+            dst.write(block)
+            left -= len(block)
+    argv = ["count", "--device", device.type, "-k", str(K), "-L", "2",
+            "-Q", "+"]
+    tables = {mode: os.path.join(workdir, "prefix_%s.npz" % mode)
+              for mode in ("chunked", "stream")}
+    rss_before = peak_rss_mb()
+    reset_launches()
+    _, chunked = run_cli(argv + ["--mode", "chunked", "-o", tables["chunked"],
+                                 prefix])
+    launches = check_launches(kernel_launches(), "count --mode chunked")
+    rss_after = peak_rss_mb()
+    _, stream = run_cli(argv + ["--mode", "stream", "-o", tables["stream"],
+                                prefix])
+    got, want = (CountTable.load(tables[m]) for m in ("chunked", "stream"))
+    if not (got.keys.dtype == want.keys.dtype
+            and got.counts.dtype == want.counts.dtype
+            and np.array_equal(got.keys, want.keys)
+            and np.array_equal(got.counts, want.counts)
+            and (got.k, got.canonical) == (want.k, want.canonical)):
+        raise AssertionError("count --mode chunked: the table differs from "
+                             "--mode stream's")
+    windows = n_reads * (READ_LEN - K + 1)
+    if chunked["total"] != windows:
+        raise AssertionError("chunked counts sum to %d, expected %d windows"
+                             % (chunked["total"], windows))
+    if not (launches["pack"] == launches["sort_runs"] == chunked["chunks"]
+            == chunked["pack_launches"] == chunked["sort_runs_launches"]):
+        raise AssertionError("chunked: launches %s for %d chunks"
+                             % (launches, chunked["chunks"]))
+    return dict(reads=n_reads, bases=n_reads * READ_LEN,
+                distinct=chunked["distinct"], chunks=chunked["chunks"],
+                chunked_s=chunked["seconds"], stream_s=stream["seconds"],
+                stream_retries=stream["retries"],
+                kmers_per_s=windows / chunked["seconds"],
+                runs=chunked["runs"],
+                readback_bytes=chunked["readback_bytes"],
+                input_s=chunked["input_s"], merge_s=chunked["merge_s"],
+                stream_input_s=stream["input_s"],
+                peak_rss_mb_before=rss_before, peak_rss_mb_after=rss_after,
+                launches=launches)
+
+
+def compare_modes(device, workdir: str, log2_bases: int, seed: int) -> None:
+    """``count`` of the whole sample in turns (chunked, stream, stream,
+    chunked), each run ``python -m km_tpu_torch count`` in a fresh
+    process that also prints its numbers and its peak RSS; the four
+    tables must be equal."""
+    from km_tpu_torch.models.table import CountTable
+
+    fq = os.path.join(workdir, "sample.fastq")
+    n_reads = write_fastq(fq, 1 << log2_bases, seed)
+    code = ("import json, resource, sys\n"
+            "from km_tpu_torch import cli\n"
+            "stats = cli.main(sys.argv[1:])\n"
+            "stats['peak_rss_mb'] = resource.getrusage("
+            "resource.RUSAGE_SELF).ru_maxrss / 1024\n"
+            "print(json.dumps(stats))\n")
+    first = None
+    for turn, mode in enumerate(("chunked", "stream", "stream", "chunked")):
+        out = os.path.join(workdir, "modes_%d.npz" % turn)
+        t0 = time.perf_counter()
+        proc = subprocess.run(
+            [sys.executable, "-c", code, "count", "--device", device.type,
+             "--mode", mode, "-k", str(K), "-L", "2", "-Q", "+", "-o", out,
+             fq], cwd=REPO, env=dict(os.environ, PYTHONPATH=REPO),
+            capture_output=True, text=True, timeout=COHORT_TIMEOUT_S)
+        wall_s = time.perf_counter() - t0
+        if proc.returncode:
+            raise AssertionError("count --mode %s exited %d:\n%s"
+                                 % (mode, proc.returncode, proc.stderr[-4000:]))
+        table = CountTable.load(out)
+        if first is None:
+            first = table
+        elif not (np.array_equal(table.keys, first.keys)
+                  and np.array_equal(table.counts, first.counts)):
+            raise AssertionError("turn %d (%s): the table differs from the "
+                                 "first turn's" % (turn, mode))
+        os.remove(out)
+        say("compare_modes", turn=turn, mode=mode, reads=n_reads,
+            wall_s=wall_s, **json.loads(proc.stdout.splitlines()[-1]))
+
+
+def phase_scale_count(device) -> dict:
+    """``scripts.scale_count`` at its full default: 64 chunks of 2^24
+    bases synthesized and counted on the card into 2^23 slots; it raises
+    unless every window is counted. One launch of each kernel per chunk."""
+    from km_tpu_torch.scripts.scale_count import scale_count
+
+    reset_launches()
+    record, keys, _counts = scale_count(SCALE_CHUNKS, SCALE_CAPACITY,
+                                        device=device)
+    launches = check_launches(kernel_launches(), "scale_count")
+    if not launches["pack"] == launches["sort_runs"] == SCALE_CHUNKS:
+        raise AssertionError("scale_count: launches %s for %d chunks"
+                             % (launches, SCALE_CHUNKS))
+    if not (np.diff(keys.astype(np.int64)) > 0).all():
+        raise AssertionError("scale_count: the table's keys are not "
+                             "ascending and distinct")
+    return dict(record, launches=launches)
+
+
+def phase_bigtable_walk(device) -> dict:
+    """``scripts.bigtable_walk`` at 1e8 extra records and 400 targets: it
+    raises unless host and device rows equal the fixture-only rows; the
+    walk, the sweeps and NNLS must have run on the card."""
+    from km_tpu_torch.scripts.bigtable_walk import bigtable_walk
+
+    before = device_calls()
+    record, rows = bigtable_walk(BIGTABLE_EXTRA, CATALOG_TARGETS,
+                                 device=device)
+    calls = check_device_calls(before, "bigtable_walk")
+    if not (rows["host"] == rows["device"] == rows["fixture"]
+            and record["rows_match_fixture_only_run"]):
+        raise AssertionError("bigtable_walk: rows differ")
+    return dict(record, calls=calls, peak_rss_mb=peak_rss_mb())
 
 
 def lookup_queries(host, boundaries, n: int):
@@ -913,6 +1048,7 @@ def main(argv=None) -> int:
     ap.add_argument("--log2-bases", type=int, default=30)
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--kernels-only", action="store_true")
+    ap.add_argument("--compare-modes", action="store_true")
     opts = ap.parse_args(argv)
 
     import torch
@@ -945,6 +1081,14 @@ def main(argv=None) -> int:
     native_s = _build.build_native()
     native.require()
     say("build_native", seconds=native_s, library=_build.NATIVE_LIB_PATH)
+    if opts.compare_modes:
+        workdir = tempfile.mkdtemp(prefix="km_tpu_torch_modes_")
+        try:
+            compare_modes(device, workdir, opts.log2_bases, opts.seed)
+        finally:
+            shutil.rmtree(workdir, ignore_errors=True)
+        print(smi)
+        return 0
     kernels = {"pack": kernel_pack(device)}
     say("kernel_pack", **kernels["pack"])
     kernels["sort_runs"] = kernel_sort_runs(device)
@@ -965,8 +1109,14 @@ def main(argv=None) -> int:
         launches = check_launches(kernel_launches(), "main")
         say("launches", **launches)
         say("count_slice", **phase_count_slice(device, counted["fastq"]))
+        # counting and walking at scale, each path with its own launches
+        chunked = phase_count_chunked(device, workdir, counted["fastq"])
+        say("count_chunked", **chunked)
+        scale = phase_scale_count(device)
+        say("scale_count", **scale)
         say("catalog_device", **phase_catalog_device(device, workdir,
                                                      counted["table"]))
+        say("bigtable_walk", **phase_bigtable_walk(device))
         # the scale-out paths: the sharded layer in-process, then cohort
         # under torchrun; each reads its own kernel launches
         sharded = phase_sharded(device, workdir, counted["fastq"])
@@ -993,6 +1143,8 @@ def main(argv=None) -> int:
     sources = {"pack": "pack", "sort_runs": "sort_runs",
                "sort_chunks": "sort_runs"}
     by_path = {name: {"main": launches[name],
+                      "chunked": chunked["launches"][name],
+                      "scale_count": scale["launches"][name],
                       "sharded": sharded["launches"][name],
                       "cohort": cohort["launches"][name]}
                for name in ("pack", "sort_runs")}

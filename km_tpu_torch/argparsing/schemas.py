@@ -3,8 +3,8 @@ km_tpu/argparsing/schemas.py, with ``--device``).
 
 The port's own choice is ``--device``: 'cuda' (the default) runs on the
 card, 'cpu' runs the port's plain torch versions on CPU tensors, 'host'
-runs the numpy spec. ``count`` has no ``--mode`` (the chunked mode is
-not ported).
+runs the numpy spec. ``--mode`` of ``count`` (and of ``cohort``, for the
+samples it counts) has km_tpu's choices and default.
 
 Defaults are the de-facto algorithm spec shared with km: count 5,
 ratio 0.05, steps 500, branchs 10, nodes 10000
@@ -129,6 +129,15 @@ def add_device_arg(parser, what: str):
              "(plain torch on CPU tensors) or host (numpy)" % what)
 
 
+def add_mode_arg(parser):
+    parser.add_argument(
+        "--mode", choices=["auto", "stream", "chunked"], default="auto",
+        help="Device counting strategy: 'stream' keeps one accumulator "
+             "on-device (single readback), 'chunked' reads back "
+             "per-chunk runs and k-way-merges them natively on the "
+             "host; 'auto' picks per backend")
+
+
 def add_count_args(parser):
     parser.add_argument(
         "-k", "--kmer-size", dest="k", default=31, type=int,
@@ -149,6 +158,7 @@ def add_count_args(parser):
         help="Output count table (.npz, or .jf for Jellyfish's own "
              "binary/sorted layout)")
     add_device_arg(parser, "counting")
+    add_mode_arg(parser)
     parser.add_argument(
         "reads_fn", nargs="+",
         help="FASTQ/FASTA read files (optionally .gz)")
@@ -204,3 +214,4 @@ def add_cohort_args(parser):
              "(FASTQ/FASTA, optionally .gz); hosts of a multi-host "
              "slice split this list.")
     add_device_arg(parser, "counting raw-read samples and the catalog")
+    add_mode_arg(parser)

@@ -65,16 +65,24 @@ def batch_discover(targets: list[TargetSeq], table, ratio=0.05, count=5,
 
     node_sets: list[set[int]] = []
     node_order: list[list[int]] = []
-    for t in targets:
+    for ti, t in enumerate(targets):
         mers = [int(m) for m in t.ref_mer]
         node_sets.append(set(mers))
         node_order.append(list(mers))
+        # the sequential engine's first budget check, before any step
+        # (km_tpu's batch walk reads the budget only after a commit)
+        if len(node_sets[ti]) > max_node:
+            if on_budget == "raise":
+                raise NodeBudgetExceeded(max_node)
+            failed.add(ti)
 
     # walklet state (parallel lists; stacks as python lists of ints)
     tgt: list[int] = []
     stacks: list[list[int]] = []
     breaks: list[int] = []
     for ti, t in enumerate(targets):
+        if ti in failed:
+            continue
         for m in t.ref_mer:
             tgt.append(ti)
             stacks.append([int(m)])

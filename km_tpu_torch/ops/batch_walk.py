@@ -46,7 +46,10 @@ Where it differs from km_tpu, on purpose:
 - the seed filter runs as its own call and its verdict is read back
   once per fixpoint iteration (km_tpu fused it into the walk to save a
   round trip over its TPU link);
-- the learned stack depth is kept per table, not per process.
+- the learned stack depth is kept per table, not per process;
+- the node budget is also read before the walk, on each target's own
+  k-mers, as the sequential engine reads it at its first call; km_tpu
+  reads it only after a commit.
 
 Not ported (see ROADMAP): ``walk_kernel_blob`` and the compile-class
 freezing and power-of-two padding of seeds, members and queries.
@@ -335,8 +338,15 @@ def device_discover(targets_mers: list[np.ndarray], table, ratio=0.05,
         stack_cap = _learned_stack_cap.get(table, DEFAULT_STACK_CAP)
     S = min(max(8, stack_cap), max(8, max_stack))
 
-    active = np.arange(len(seed_keys), dtype=np.int64)
-    failed: set[int] = set()
+    # a target whose own k-mers outnumber the budget fails before it
+    # walks, as the sequential engine's first budget check does (km_tpu
+    # reads the budget only after a commit, so such a target passes
+    # there when it commits nothing)
+    failed: set[int] = {t for t, ns in enumerate(node_sets)
+                        if len(ns) > max_node}
+    if failed and on_budget == "raise":
+        raise NodeBudgetExceeded(max_node)
+    active = np.flatnonzero(~np.isin(seed_tgt, sorted(failed)))
     WC_f = 0
     stats = dict(iterations=0, rounds=0, retries=0, walklets=0, stack=S,
                  filter_s=0.0, rounds_s=0.0, commits_s=0.0)

@@ -1,7 +1,8 @@
 """K-mer counting on the device: sort + segment sum, as in km_tpu.
 
 Replaces the device half of km_tpu/ops/count.py (count_chunk_device,
-sum_runs_device, merge_accum_device, count_batches_device_stream). The
+sum_runs_device, merge_accum_device, count_batches_device_stream,
+count_batches_device_compact, count_batches_device). The
 host half (window_valid, count_batches_host, merge_runs, chunk_stream,
 _coalesce_batches) is the port's copy of km_tpu's numpy code, held equal
 to it by the CPU tests.
@@ -20,6 +21,19 @@ Two defects of km_tpu's stream are not reproduced:
 - the overflow check reads a running maximum of the unique-key count,
   so an overflow that truncated keys raises even when a later chunk
   brings no new key.
+
+``count_batches_device_compact`` (``count --mode chunked``) keeps no
+accumulator on the device: each chunk's runs are summed there, read back
+and merged on the host, so there is no capacity to size and the input is
+never read twice. ``count_batches_device`` reads every sort-chunk back
+as its own run and merges them all at once.
+
+Not carried over from km_tpu's compact path: ``pack2_host`` /
+``unpack2_device`` (2-bit packing of the upload, which served a narrow
+host link; codes and flags go up as they are) and ``_drain_compact``'s
+power-of-two pad of the readback (it bounded the number of compiled
+slice programs; a tensor slice compiles nothing in torch, so exactly the
+live runs cross).
 """
 
 from __future__ import annotations
@@ -29,6 +43,7 @@ import time
 import numpy as np
 import torch
 
+from .. import native
 from ..device import SENTINEL, check_k, i64_to_u64, resolve_device
 from . import encode
 from .pack import pack_canonical_windows
@@ -265,3 +280,162 @@ def count_batches_device_stream(batches, k: int, canonical: bool = True,
                      total=int(cnt.sum()), input_s=input_s[0])
     keep = cnt >= min_count
     return i64_to_u64(keys[keep]), cnt[keep].astype(np.uint32)
+
+
+def chunk_runs_device(codes: torch.Tensor, valid: torch.Tensor, k: int,
+                      canonical: bool = True, sort_chunk: int = CHUNK
+                      ) -> tuple[torch.Tensor, torch.Tensor]:
+    """One chunk's (key, count) runs in global key order: (int64 keys
+    ascending and distinct, int64 counts > 0), on the chunk's device.
+
+    The chunk sort orders keys only within sort_chunk-sized pieces, and a
+    host k-way merge needs each run sorted as a whole, so the live run
+    starts are sorted again across the chunk; a key that spans
+    sort-chunks is summed here (exactly, sum_runs_device), which also
+    makes the readback as small as it can be."""
+    keys, lengths = count_chunk_device(codes, valid, k, canonical=canonical,
+                                       sort_chunk=sort_chunk)
+    live = lengths > 0  # run starts of real keys; SENTINEL runs are 0
+    skeys, totals = sum_runs_device(keys[live], lengths[live])
+    first = totals > 0
+    return skeys[first], totals[first]
+
+
+class _RunReadback:
+    """Device runs -> host (keys uint64, counts int64), two chunks in
+    flight. On a card each chunk's runs are copied into one of two pinned
+    staging buffers without blocking and an event marks the copy's end;
+    the buffer is read only after its event, and reused only after it was
+    read (chunk i + 2 takes chunk i's buffer)."""
+
+    def __init__(self, device: torch.device, cap: int):
+        self.cuda = device.type == "cuda"
+        self.pending: list = []
+        self.runs: list[tuple[np.ndarray, np.ndarray]] = []
+        self.bytes = 0
+        self.n = 0
+        if self.cuda:
+            self.staging = [torch.empty((2, cap), dtype=torch.int64,
+                                        pin_memory=True) for _ in range(2)]
+
+    def push(self, keys: torch.Tensor, counts: torch.Tensor) -> None:
+        m = keys.numel()
+        if self.cuda:
+            buf = self.staging[self.n % 2]
+            buf[0, :m].copy_(keys, non_blocking=True)
+            buf[1, :m].copy_(counts, non_blocking=True)
+            done = torch.cuda.Event()
+            done.record()
+            self.pending.append((buf, m, done))
+        else:
+            self.pending.append((torch.stack([keys, counts]), m, None))
+        self.n += 1
+        if len(self.pending) >= 2:
+            self._drain()
+
+    def _drain(self) -> None:
+        buf, m, done = self.pending.pop(0)
+        if done is not None:
+            done.synchronize()
+        self.bytes += 2 * 8 * m
+        if m:
+            # real keys lie below 2**62 and SENTINEL runs were dropped on
+            # the device, so the int64 words are the uint64 keys, in order
+            host = buf[:, :m].numpy().copy()
+            self.runs.append((host[0].view(np.uint64), host[1]))
+
+    def finish(self) -> list[tuple[np.ndarray, np.ndarray]]:
+        while self.pending:
+            self._drain()
+        return self.runs
+
+
+def _merge_all(runs):
+    """Sorted (keys uint64, counts int64) runs -> one (keys, counts) with
+    duplicate keys summed: one native k-way merge, or the numpy pairwise
+    merge, started from empty, where the native library is absent."""
+    if native.available():
+        return native.merge_sorted_runs(runs)
+    acc = (np.empty(0, np.uint64), np.empty(0, np.int64))
+    for rk, rc in runs:
+        acc = merge_runs(acc[0], acc[1], rk, rc)
+    return acc
+
+
+def count_batches_device_compact(batches, k: int, canonical: bool = True,
+                                 min_count: int = 1, chunk: int = 1 << 24,
+                                 device="cuda", sort_chunk: int = CHUNK,
+                                 stats=None):
+    """File -> table counting with no accumulator on the device
+    (``count --mode chunked``): per chunk, the runs are summed on the
+    device (chunk_runs_device) and only they are read back; all chunks'
+    runs merge on the host at the end. There is no capacity to overflow,
+    so the input is read once; the runs wait in host memory (16 bytes
+    each) until the merge. Returns (keys uint64, counts uint32), equal to
+    every other counting path's.
+
+    ``stats``, a dict, receives the chunks, the runs and bytes read back,
+    the host seconds spent reading the input (``input_s``) and merging
+    (``merge_s``), and the launches of the two kernels."""
+    check_k(k)
+    if chunk <= k:
+        raise ValueError("chunk must exceed k")
+    dev = resolve_device(device)
+    launches0 = (pack_canonical_windows.launches, sort_chunks_runs.launches)
+    readback = _RunReadback(dev, chunk)
+    input_s = [0.0]
+    chunks = chunk_stream(_coalesce_batches(batches, k, 4 * chunk), chunk, k)
+    for codes, valid in _timed(chunks, input_s):
+        readback.push(*chunk_runs_device(
+            torch.from_numpy(codes).to(dev), torch.from_numpy(valid).to(dev),
+            k, canonical=canonical, sort_chunk=sort_chunk))
+    runs = readback.finish()
+
+    t0 = time.perf_counter()
+    if runs:
+        keys, cnt = _merge_all(runs)
+    else:
+        keys, cnt = np.empty(0, np.uint64), np.empty(0, np.int64)
+    merge_s = time.perf_counter() - t0
+    if stats is not None:
+        stats.update(
+            chunks=readback.n, runs=sum(len(r[0]) for r in runs),
+            readback_bytes=readback.bytes, unique=len(keys),
+            total=int(cnt.sum()), input_s=input_s[0], merge_s=merge_s,
+            pack_launches=pack_canonical_windows.launches - launches0[0],
+            sort_runs_launches=sort_chunks_runs.launches - launches0[1])
+    keep = cnt >= min_count
+    return keys[keep], cnt[keep].astype(np.uint32)
+
+
+def count_batches_device(batches, k: int, canonical: bool = True,
+                         min_count: int = 1, chunk: int = 1 << 22,
+                         device="cuda", sort_chunk: int = CHUNK):
+    """Count k-mers over (codes, valid) host batches with the device
+    kernels, as km_tpu's function of this name: each chunk is read back
+    whole, every sort-chunk's live keys are one sorted run, and all runs
+    combine in a single native k-way merge at the end (numpy pairwise
+    merge where the native library is absent)."""
+    check_k(k)
+    if chunk <= k:
+        raise ValueError("chunk must exceed k")
+    dev = resolve_device(device)
+    runs: list[tuple[np.ndarray, np.ndarray]] = []
+    for codes, valid in chunk_stream(batches, chunk, k):
+        keys, lengths = count_chunk_device(
+            torch.from_numpy(codes).to(dev), torch.from_numpy(valid).to(dev),
+            k, canonical=canonical, sort_chunk=sort_chunk)
+        keys = keys.cpu().numpy()
+        lengths = lengths.cpu().numpy().astype(np.int64)
+        for off in range(0, len(keys), sort_chunk):
+            c = lengths[off:off + sort_chunk]
+            keep = c > 0
+            if keep.any():
+                # live keys lie below 2**62: the words are the uint64 keys
+                runs.append((keys[off:off + sort_chunk][keep].view(np.uint64),
+                             c[keep]))
+    if not runs:
+        return np.empty(0, np.uint64), np.empty(0, np.uint32)
+    keys, cnt = _merge_all(runs)
+    keep = cnt >= min_count
+    return keys[keep], cnt[keep].astype(np.uint32)

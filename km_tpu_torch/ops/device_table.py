@@ -59,10 +59,15 @@ class DeviceCountTable:
         check_k(k)
         self.device = resolve_device(device)
         keys = np.asarray(keys, dtype=np.uint64)
-        order = np.argsort(keys, kind="stable")
-        self.keys = torch.from_numpy(u64_to_i64(keys[order])).to(self.device)
+        counts = np.asarray(counts)
+        # a host table's keys are sorted already: at 1e8 records and more
+        # the argsort and the two gathers would be most of the upload
+        if len(keys) > 1 and not (keys[1:] >= keys[:-1]).all():
+            order = np.argsort(keys, kind="stable")
+            keys, counts = keys[order], counts[order]
+        self.keys = torch.from_numpy(u64_to_i64(keys)).to(self.device)
         self.counts = torch.from_numpy(
-            np.asarray(counts)[order].astype(np.int64)).to(self.device)
+            counts.astype(np.int64)).to(self.device)
         self.k = int(k)
         self.canonical = bool(canonical)
         self.name = name

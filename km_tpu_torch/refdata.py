@@ -8,6 +8,10 @@ stand alone, mirroring the reference's own in-tree `data/` precedent
 km_tpu/refdata.py. The
 ``KM_TPU_REFDATA`` environment variable points everything at a
 different data tree (e.g. the original reference checkout).
+
+``catalog_sequences`` and ``catalog_targets`` are the port's own: the
+bundled catalog cycled to any number of targets, for the smoke run and
+the scale scripts.
 """
 
 from __future__ import annotations
@@ -33,3 +37,25 @@ def catalog_fa(name: str, build: str = "GRCh38") -> str:
 def jf_path(sample: str) -> str:
     """Path of one bundled `.jf` count table (name without extension)."""
     return os.path.join(DATA_DIR, "jf", sample + ".jf")
+
+
+def catalog_sequences(n_targets: int) -> list[tuple[str, str]]:
+    """The 9 GRCh38 catalog targets cycled to ``n_targets``, as
+    (sequence, name) with each name <target>_<i>."""
+    from .io.fasta import read_target
+
+    cat = catalog_dir("GRCh38")
+    base = []
+    for fn in sorted(os.listdir(cat)):
+        seqs, _ = read_target(os.path.join(cat, fn))
+        base.append(("".join(seqs), os.path.splitext(fn)[0]))
+    return [(base[i % len(base)][0], "%s_%d" % (base[i % len(base)][1], i))
+            for i in range(n_targets)]
+
+
+def catalog_targets(n_targets: int, k: int):
+    """``catalog_sequences`` as TargetSeq objects for k-mer length k."""
+    from .models.sequence import TargetSeq
+
+    return [TargetSeq(seq, name, k)
+            for seq, name in catalog_sequences(n_targets)]

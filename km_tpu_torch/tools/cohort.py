@@ -11,7 +11,8 @@ The reference runs a cohort as nested shell loops, one
   local_read_shards), each on its own card, ``cuda:LOCAL_RANK``;
 - **a sample** given as a ``.jf``/``.npz`` table is loaded; any other is
   read as FASTQ/FASTA and counted by the process that owns it, with
-  ``count_read_files`` on its own device. No collective runs inside a
+  ``count_read_files`` on its own device, with the ``--mode`` given (as
+  in ``count``). No collective runs inside a
   sample: processes hold different samples, as km_tpu counts per
   process when more than one runs (km_tpu/tools/count.py:57-65);
 - **targets** run as one batched pipeline per sample (models.batch.
@@ -57,7 +58,8 @@ def _table_for_sample(sample: str, args, device):
         return table
     keys, counts = count_read_files(
         [sample], args.k, canonical=True, min_count=args.lower_count,
-        min_quality=args.min_quality, device=device)
+        min_quality=args.min_quality, device=device,
+        mode=getattr(args, "mode", "auto"))
     return CountTable.from_arrays(keys, counts, args.k, True, name=sample,
                                   presorted=True)
 

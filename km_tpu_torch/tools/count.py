@@ -8,16 +8,23 @@ on CPU tensors, and ``host`` is the numpy spec. There is no size
 rule that moves small inputs elsewhere: the device asked for is used, or
 the run fails.
 
+``--mode`` picks the device strategy, as in km_tpu: ``stream`` (and
+``auto``) keeps one accumulator on the device and reads it back once,
+re-reading the files with four times the capacity when it overflows;
+``chunked`` reads each chunk's runs back and k-way-merges them on the
+host at the end, so it has no capacity and reads the files once, but
+holds every run in host memory until the merge. ``--device host``
+ignores it.
+
 Under torchrun with more than one process (``python -m
 torch.distributed.run --nproc_per_node=N -m km_tpu_torch count ...``),
 every process reads the same files and counts every N-th chunk on its own
 device, the runs go to the process that owns their key range
 (parallel.sharded_table.sharded_count), and the first process writes the
 table. This is the port's form of km_tpu's multi-device branch
-(km_tpu/tools/count.py:54-70). With one process the single-device stream
-runs.
-
-Not ported: ``--mode chunked``.
+(km_tpu/tools/count.py:54-70). The sharded count runs whatever ``--mode`` says, as
+km_tpu's multi-device branch comes before its mode is read. With one
+process the mode's single-device counter runs.
 """
 
 from __future__ import annotations
@@ -30,30 +37,41 @@ import torch.distributed as dist
 from ..device import resolve_device
 from ..io.fastq import read_batches
 from ..models.table import CountTable
-from ..ops.count import (CountCapacityOverflow, count_batches_device_stream,
-                         count_batches_host)
+from ..ops.count import (CountCapacityOverflow, count_batches_device_compact,
+                         count_batches_device_stream, count_batches_host)
 from ..parallel import distributed
 
 # bases per uploaded chunk; the CPU runs the plain versions, where a
 # smaller chunk keeps the temporaries small
 CHUNK = {"cuda": 1 << 24, "cpu": 1 << 20}
 START_CAPACITY = 1 << 22
+MODES = ("auto", "stream", "chunked")
 
 
 def count_read_files(paths, k: int, canonical: bool = True,
                      min_count: int = 2, min_quality=None,
-                     device: str = "cuda", stats=None, group=None):
+                     device: str = "cuda", stats=None, group=None,
+                     mode: str = "auto"):
     """Count k-mers of read files on ``device`` ('cuda', 'cpu' or
     'host'); returns host (keys uint64, counts uint32).
 
-    On accumulator overflow the files are re-read with four times the
-    capacity (counting is stateless, so the retry is exact), starting
-    from 2^22 slots as km_tpu does. ``stats``, a dict, receives the
-    stream's numbers and the number of retries.
+    ``mode`` picks the device strategy: 'stream' (one device-resident
+    accumulator, one readback) or 'chunked' (per-chunk readbacks of the
+    runs and a native k-way merge on the host: no device capacity to
+    size, useful when host memory is the roomier resource); 'auto' =
+    'stream'. 'host' ignores it, and so does a process ``group``.
+
+    In stream mode, on accumulator overflow the files are re-read with
+    four times the capacity (counting is stateless, so the retry is
+    exact), starting from 2^22 slots as km_tpu does. ``stats``, a dict,
+    receives the counter's numbers and, for the stream, the number of
+    retries.
 
     With a process ``group``, every rank of it calls this alike and the
     count is sharded over the group on each rank's own device; the
     group's first rank gets the table, the others None."""
+    if mode not in MODES:
+        raise ValueError("mode must be one of %s; got %r" % (MODES, mode))
     batches = read_batches(paths, min_quality=min_quality)
     if device == "host":
         return count_batches_host(batches, k, canonical=canonical,
@@ -66,6 +84,10 @@ def count_read_files(paths, k: int, canonical: bool = True,
                              min_count=min_count, chunk=CHUNK[dev.type],
                              device=dev, stats=stats)
     dev = resolve_device(device)
+    if mode == "chunked":
+        return count_batches_device_compact(
+            batches, k, canonical=canonical, min_count=min_count,
+            chunk=CHUNK[dev.type], device=dev, stats=stats)
     capacity = START_CAPACITY
     retries = 0
     while True:
@@ -100,7 +122,8 @@ def main_count(args, argparser):
         out = count_read_files(
             args.reads_fn, args.k, canonical=args.canonical,
             min_count=args.min_count, min_quality=args.min_quality,
-            device=args.device, stats=stats, group=group)
+            device=args.device, stats=stats, group=group,
+            mode=getattr(args, "mode", "auto"))
     if not writer:
         return stats
     keys, counts = out

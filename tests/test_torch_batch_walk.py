@@ -23,6 +23,7 @@ from km_tpu.ops.device_table import DeviceCountTable as JaxTable
 from km_tpu_torch import convert
 from km_tpu_torch.models.batch import batch_discover
 from km_tpu_torch.models.walk import NodeBudgetExceeded
+from km_tpu_torch.models.walk import Walker as PortWalker
 from km_tpu_torch.ops import batch_walk
 from km_tpu_torch.ops.device_table import DeviceCountTable
 
@@ -122,8 +123,22 @@ def test_node_budget_skip_and_raise():
     max_node = sorted(sizes)[len(sizes) // 2] + 2  # some targets overrun
     want, got = _both(mers, host, max_node=max_node, on_budget="skip",
                       stack_cap=64)
-    assert _orders(got) == _orders(want)
-    assert any(r is None for r in got) and any(r is not None for r in got)
+    # a target whose own k-mers outnumber the budget: the port fails it
+    # before it walks, as the sequential Walker does at its first call;
+    # km_tpu's device walk reads the budget only after a commit, so it
+    # fails such a target only if it commits
+    oversize = [size > max_node for size in sizes]
+    assert any(oversize) and not all(oversize)
+    for big, w, g, m in zip(oversize, _orders(want), _orders(got), mers):
+        if big:
+            assert g is None and (w is None or w == m.tolist())
+            with pytest.raises(NodeBudgetExceeded):
+                PortWalker(convert.count_table_from_km_tpu(host), 0.05, 5,
+                           max_node=max_node).discover(m)
+        else:
+            assert g == w and g is not None
+    assert any(w is None for w in want) and any(
+        big and w is not None for big, w in zip(oversize, want))
     with pytest.raises(NodeBudgetExceeded):
         batch_walk.device_discover(mers, _port_table(host),
                                    max_node=max_node)

@@ -197,15 +197,20 @@ def _options(add_args):
                                   "cohort"])
 def test_schema_matches_km_tpu(name):
     """The same options with the same flags, defaults, arities and
-    types. The port's own: --device is cuda/cpu/host with cuda the
-    default, on count and cohort, and count has no --mode."""
+    types, count's --mode among them. The port's own: --device is
+    cuda/cpu/host with cuda the default, on count and cohort, and cohort
+    takes count's --mode for the samples it counts."""
     mine = _options(getattr(schemas, "add_%s_args" % name))
     theirs = _options(getattr(km_schemas, "add_%s_args" % name))
     device = mine.pop("device", None)
     theirs_device = theirs.pop("device", None)
     if name == "count":
-        assert theirs.pop("mode")[0] == ("--mode",)
+        assert mine["mode"] == theirs["mode"] == (
+            ("--mode",), "auto", None, ("auto", "stream", "chunked"), None,
+            "_StoreAction")
         assert theirs_device[3] == ("auto", "tpu", "cpu", "host")
+    if name == "cohort":
+        assert mine.pop("mode") == _options(schemas.add_count_args)["mode"]
     assert list(mine) == list(theirs)
     for dest in mine:
         a, b = mine[dest], theirs[dest]
@@ -273,6 +278,9 @@ def _small_fastq(path):
 SUBCOMMANDS = {
     "count": lambda tmp: ["count", "--device", "cpu", "-k", "31", "-o",
                           f"{tmp}/t.npz", f"{tmp}/reads.fq"],
+    "count_chunked": lambda tmp: ["count", "--device", "cpu", "--mode",
+                                  "chunked", "-k", "31", "-o",
+                                  f"{tmp}/t.npz", f"{tmp}/reads.fq"],
     "count_host": lambda tmp: ["count", "--device", "host", "-o",
                                f"{tmp}/t.jf", f"{tmp}/reads.fq"],
     "find_mutation": lambda tmp: [
@@ -333,7 +341,7 @@ def test_packaging_names_the_new_subpackages_and_sources():
         tool = tomllib.load(f)["tool"]["setuptools"]
     found = find_packages(REPO, include=tool["packages"]["find"]["include"])
     for name in ("io", "native", "models", "ops", "tools", "parallel",
-                 "argparsing", "utils"):
+                 "argparsing", "utils", "scripts"):
         assert "km_tpu_torch." + name in found
     shipped = [os.path.relpath(p, os.path.join(REPO, "km_tpu_torch"))
                for pattern in tool["package-data"]["km_tpu_torch"]

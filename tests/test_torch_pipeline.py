@@ -136,8 +136,9 @@ def test_reads_to_report_matches_km_tpu_cli(tmp_path):
 
 
 def test_port_main_path_never_loads_jax(tmp_path):
-    """Every subcommand of the port in one fresh process, and every
-    module of the package imported: afterwards no module named km_tpu,
+    """Every subcommand of the port (``count`` in both modes) and the
+    two ``-m`` entry points of ``km_tpu_torch.scripts`` in one fresh
+    process, and every module of the package imported: afterwards no module named km_tpu,
     km_tpu.* or jax is loaded. (The name predates the port's own host
     modules and is kept so that the case keeps its history.)"""
     fq, target, _alt = _fastq(tmp_path)
@@ -158,6 +159,9 @@ def test_port_main_path_never_loads_jax(tmp_path):
         "check('import')\n"
         "cli.main(['count', '--device', 'cpu', '-k', '31', '-o', %r, %r])\n"
         "check('count')\n"
+        "cli.main(['count', '--device', 'cpu', '--mode', 'chunked', '-k', "
+        "'31', '-o', %r, %r])\n"
+        "check('count --mode chunked')\n"
         "with open(%r, 'w') as f, contextlib.redirect_stdout(f):\n"
         "    cli.main(['find_mutation', '--batch', '--device', 'cpu', %r, "
         "%r])\n"
@@ -171,16 +175,37 @@ def test_port_main_path_never_loads_jax(tmp_path):
         "check('linear_kmin')\n"
         "cli.main(['min_cov', %r, %r])\n"
         "check('min_cov')\n"
-        "print('NO_KM_TPU')\n" % (table, fq, fm_path, target, table, fm_path,
+        "import runpy\n"
+        "for argv in (%r, %r):\n"
+        "    sys.argv = argv\n"
+        "    try:\n"
+        "        runpy.run_module(argv[0], run_name='__main__')\n"
+        "    except SystemExit as exc:\n"
+        "        assert not exc.code, exc.code\n"
+        "    check(argv[0])\n"
+        "print('NO_KM_TPU')\n" % (table, fq, table + ".chunked.npz", fq,
+                                   fm_path, target, table, fm_path,
                                    target, fm_path, target,
                                    str(tmp_path / "cohort"), table, target,
-                                   target, table))
+                                   target, table,
+                                   ["km_tpu_torch.scripts.scale_count",
+                                    "--chunks", "2", "--capacity", "16",
+                                    "--chunk", "14", "--device", "cpu"],
+                                   ["km_tpu_torch.scripts.bigtable_walk",
+                                    "--extra", "0", "--targets", "9",
+                                    "--device", "cpu"]))
     env = dict(os.environ, PYTHONPATH=REPO)
     proc = subprocess.run([sys.executable, "-c", code], cwd=str(tmp_path),
                           env=env, capture_output=True, text=True,
                           timeout=300)
     assert proc.returncode == 0, proc.stderr
     assert "NO_KM_TPU" in proc.stdout
+    assert "count_gb_scale_device_kmers_per_s" in proc.stdout
+    assert "catalog_walk_bigtable" in proc.stdout
+    chunked = np.load(table + ".chunked.npz")
+    stream = np.load(table)
+    assert np.array_equal(chunked["keys"], stream["keys"])
+    assert np.array_equal(chunked["counts"], stream["counts"])
     assert "Insertion" in proc.stdout
     assert "\tI&I\t" in proc.stdout  # find_report's row
     # find_report names the planted insertion I&I (it sits in a repeat)
