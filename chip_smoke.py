@@ -11,7 +11,12 @@ no path calls, in its own phase) and on the edge shapes a kernel is most
 likely to get wrong (every chunk size, ragged and unaligned inputs, all
 keys equal, all sentinels, sorted and reverse sorted; every k of
 1, 2, 15, 16, 17, 31, n below k, invalid bases at tile and thread-run
-boundaries). Then drives the user's workflow
+boundaries). The two merge kernels (the chunk's runs, the accumulator
+merge) are held against theirs at the sample's shape (2.6e7 keys in 2^26
+slots, one chunk of 2^24 windows) and on the cases of
+km_tpu_torch/scripts/merge_cases.py, and timed beside the torch merge
+they replace.
+Then drives the user's workflow
 through the port's CLI at the size of one RNA-seq sample: ``count`` a
 synthetic FASTQ of 2^30 bases on the card, ``find_mutation --batch``
 with the table resident on the card (the walk, the Dijkstra sweeps and
@@ -113,6 +118,28 @@ def cuda_time_ms(fn, iters: int = 10) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def device_times(fn) -> dict:
+    """Device ms per kernel of one fn() call after a warm-up, from
+    torch.profiler; {} where the profiler sees no device time."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    out = {}
+    for e in prof.key_averages():
+        us = getattr(e, "device_time_total", 0) or getattr(
+            e, "cuda_time_total", 0)
+        name = e.key.replace("(anonymous namespace)::", "")
+        name = name.split("(")[0].split("<")[0][:48]
+        if us:
+            out[name] = out.get(name, 0.0) + us / 1e3
+    return out
 
 
 def max_abs_err(a, b) -> float:
@@ -310,6 +337,187 @@ def kernel_sort_chunks(device, n: int = 1 << 24) -> dict:
                 bound_ms=bound, bound_by="bytes", share_of_bound=bound / ms,
                 library_ms=library_ms,
                 launches=sort_runs.sort_chunks.launches)
+
+
+def old_chunk_runs(keys, lengths):
+    """The chunk's runs as the port summed them before M1 (a sort of the
+    live run starts and an index_add_), timed for the record."""
+    from km_tpu_torch.ops.count import sum_runs_device
+
+    live = lengths > 0
+    skeys, totals = sum_runs_device(keys[live], lengths[live])
+    first = totals > 0
+    return skeys[first], totals[first]
+
+
+def old_merge_accum(acc_keys, acc_cnt, keys, lengths):
+    """The stream's merge as the port did it before M1 and M2 (km_tpu's
+    XLA program in torch: the padded accumulator and the chunk
+    concatenated, re-sorted, summed with index_add_, compacted), timed
+    for the record."""
+    import torch
+
+    from km_tpu_torch.device import SENTINEL
+    from km_tpu_torch.ops.count import sum_runs_device
+
+    C = acc_keys.numel()
+    k = torch.cat([acc_keys, keys])
+    c = torch.cat([acc_cnt, lengths.to(torch.int64)])
+    k = torch.where(c == 0, torch.full_like(k, SENTINEL), k)
+    skeys, tot = sum_runs_device(k, c)
+    alive = (tot > 0) & (skeys != SENTINEL)
+    dest = torch.cumsum(alive, 0) - 1
+    slot = torch.where(alive & (dest < C), dest, torch.full_like(dest, C))
+    out_keys = torch.full((C + 1,), SENTINEL, dtype=torch.int64,
+                          device=keys.device)
+    out_cnt = torch.zeros(C + 1, dtype=torch.int64, device=keys.device)
+    out_keys.scatter_(0, slot, skeys)
+    out_cnt.scatter_(0, slot, tot)
+    return out_keys[:C], out_cnt[:C], alive.sum()
+
+
+def check_chunk_runs(runs, sort_chunk: int, what: str):
+    """M1 against its plain version on the same input; returns the
+    kernel's (keys, counts, m) and the largest absolute difference of
+    its live keys and counts from the plain version's."""
+    import torch
+
+    from km_tpu_torch.ops import merge
+
+    got = merge.chunk_runs(*runs, sort_chunk)
+    want = merge.chunk_runs_plain(*runs, sort_chunk)
+    m = int(want[2])
+    if not (int(got[2]) == m and torch.equal(got[0][:m], want[0][:m])
+            and torch.equal(got[1][:m], want[1][:m])):
+        raise AssertionError("chunk_runs kernel != plain (%s): m %d vs %d"
+                             % (what, int(got[2]), m))
+    err = max(max_abs_err(got[0][:m], want[0][:m]),
+              max_abs_err(got[1][:m], want[1][:m]))
+    return got, err
+
+
+def check_merge_accum(acc, runs, what: str):
+    """M2 against its plain version on the same input, each into a new
+    empty accumulator; returns the kernel's (keys, counts, n_unique) and
+    the largest absolute difference of its output from the plain
+    version's."""
+    import torch
+
+    from km_tpu_torch.ops import merge
+    from km_tpu_torch.ops.count import empty_accumulator
+
+    outs = []
+    for fn in (merge.merge_accum, merge.merge_accum_plain):
+        out = empty_accumulator(acc[0].numel(), acc[0].device)
+        fn(*acc, *runs, *out)
+        outs.append(out)
+    if not all(torch.equal(a, b) for a, b in zip(*outs)):
+        raise AssertionError("merge_accum kernel != plain (%s): n_unique "
+                             "%d vs %d, %d keys differ"
+                             % (what, int(outs[0][2]), int(outs[1][2]),
+                                int((outs[0][0] != outs[1][0]).sum())))
+    return outs[0], max(max_abs_err(a, b) for a, b in zip(*outs))
+
+
+def merge_edges(device, kernel: str) -> int:
+    """M1 or M2 against its plain version on every edge case (each case
+    at the default piece size, and a ragged input at every piece size);
+    returns the number of cases held equal."""
+    from km_tpu_torch.ops import merge
+    from km_tpu_torch.scripts import merge_cases as mc
+
+    cases = ([(name, mc.SORT_CHUNK) for name in mc.CASES]
+             + [("ragged", sc) for sc in mc.SORT_CHUNKS])
+    for name, sc in cases:
+        acc, counts, chunk, C = mc.make_case(name, sort_chunk=sc)
+        runs = mc.sorted_chunk(chunk, sc, device)
+        what = "%s, sort_chunk %d" % (name, sc)
+        if kernel == "chunk_runs":
+            check_chunk_runs(runs, sc, what)
+        else:
+            check_merge_accum(mc.accumulator(acc, counts, C, device),
+                              merge.chunk_runs_plain(*runs, sc), what)
+    return len(cases)
+
+
+def library_chunk_runs(keys):
+    """The one PyTorch call that computes M1's function (the port never
+    calls it): torch.unique of the chunk sort's keys gives the chunk's
+    distinct keys in order with their window counts, and SENTINEL last
+    where there are invalid windows."""
+    import torch
+
+    return torch.unique(keys, sorted=True, return_counts=True)
+
+
+def kernel_chunk_runs(device, runs) -> dict:
+    """M1 at the sample's shape: one chunk of 2^24 windows."""
+    import torch
+
+    from km_tpu_torch.device import SENTINEL
+    from km_tpu_torch.ops import merge
+    from km_tpu_torch.ops.sort_runs import CHUNK
+
+    edge_cases = merge_edges(device, "chunk_runs")
+    got, err = check_chunk_runs(runs, CHUNK, "the sample's shape")
+    n, m = runs[0].numel(), int(got[2])
+    lib_k, lib_c = library_chunk_runs(runs[0])
+    if lib_k.numel() and int(lib_k[-1]) == SENTINEL:
+        lib_k, lib_c = lib_k[:-1], lib_c[:-1]
+    if not (torch.equal(lib_k, got[0][:m]) and torch.equal(lib_c, got[1][:m])):
+        raise AssertionError("torch.unique differs from chunk_runs: %d vs %d "
+                             "keys" % (lib_k.numel(), m))
+    ms = cuda_time_ms(lambda: merge.chunk_runs(*runs, CHUNK))
+    plain_ms = cuda_time_ms(lambda: merge.chunk_runs_plain(*runs, CHUNK),
+                            iters=3)
+    library_ms = cuda_time_ms(lambda: library_chunk_runs(runs[0]))
+    old_ms = cuda_time_ms(lambda: old_chunk_runs(*runs), iters=3)
+    # the alternative the merge tree was weighed against: the live run
+    # starts sorted by torch.sort (radix sort), before any reduction
+    live = runs[1] > 0
+    sort_ms = cuda_time_ms(lambda: torch.sort(runs[0][live]), iters=3)
+    # a key and a run length in, a key and an int64 count out per run
+    bound = bound_ms(n * (8 + 4) + m * 16)
+    return dict(n=n, runs=m, edge_cases=edge_cases, max_abs_err=err, ms=ms,
+                plain_ms=plain_ms, bound_ms=bound, bound_by="bytes",
+                share_of_bound=bound / ms, library_ms=library_ms,
+                old_torch_ms=old_ms, torch_sort_of_live_ms=sort_ms,
+                kernels_ms=device_times(
+                    lambda: merge.chunk_runs(*runs, CHUNK)))
+
+
+def kernel_merge_accum(device, acc, sorted_runs) -> dict:
+    """M2 at the sample's shape: one chunk's runs (M1 of the chunk sort's
+    output) into 2.6e7 keys in 2^26 slots. No single PyTorch call merges
+    two sorted sequences and sums the counts of equal keys."""
+    from km_tpu_torch.ops import merge
+    from km_tpu_torch.ops.count import empty_accumulator
+    from km_tpu_torch.ops.sort_runs import CHUNK
+
+    edge_cases = merge_edges(device, "merge_accum")
+    runs = merge.chunk_runs(*sorted_runs, CHUNK)
+    got, err = check_merge_accum(acc, runs, "the sample's shape")
+    slots = acc[0].numel()
+    la, m, nu = int(acc[2]), int(runs[2]), int(got[2])
+    out = empty_accumulator(slots, device)
+    ms = cuda_time_ms(lambda: merge.merge_accum(*acc, *runs, *out))
+    plain_ms = cuda_time_ms(
+        lambda: merge.merge_accum_plain(*acc, *runs, *out), iters=3)
+    # what the stream did per chunk before: the old chunk-and-accumulator
+    # merge, against M1 and M2 together
+    old_ms = cuda_time_ms(lambda: old_merge_accum(*acc[:2], *sorted_runs),
+                          iters=3)
+    m1_m2_ms = cuda_time_ms(lambda: merge.merge_accum(
+        *acc, *merge.chunk_runs(*sorted_runs, CHUNK), *out))
+    # both live inputs in, the live output out, 16 bytes a record
+    bound = bound_ms((la + m + min(nu, slots)) * 16)
+    return dict(slots=slots, live=la, runs=m, n_unique=nu,
+                edge_cases=edge_cases, max_abs_err=err, ms=ms,
+                plain_ms=plain_ms, bound_ms=bound, bound_by="bytes",
+                share_of_bound=bound / ms, library_ms=None,
+                old_torch_ms=old_ms, m1_and_m2_ms=m1_m2_ms,
+                kernels_ms=device_times(
+                    lambda: merge.merge_accum(*acc, *runs, *out)))
 
 
 # ---------------------------------------------------------------------------
@@ -626,24 +834,40 @@ def phase_catalog_device(device, workdir: str, counted_table: str) -> dict:
     return dict(fixture=fixture, counted=counted_run)
 
 
-def kernel_launches() -> dict:
-    from km_tpu_torch.ops import pack, sort_runs
+# the kernels each path runs; every other kernel must not launch there
+PATH_KERNELS = {
+    "main": ("pack", "sort_runs", "chunk_runs", "merge_accum"),
+    "chunked": ("pack", "sort_runs", "chunk_runs"),
+    "scale_count": ("pack", "sort_runs", "chunk_runs", "merge_accum"),
+    "sharded": ("pack", "sort_runs"),
+    "cohort": ("pack", "sort_runs", "chunk_runs", "merge_accum"),
+}
 
-    return {"pack": pack.pack_canonical_windows.launches,
-            "sort_runs": sort_runs.sort_chunks_runs.launches}
+
+def _counted():
+    from km_tpu_torch.ops import merge, pack, sort_runs
+
+    return {"pack": pack.pack_canonical_windows,
+            "sort_runs": sort_runs.sort_chunks_runs,
+            "chunk_runs": merge.chunk_runs,
+            "merge_accum": merge.merge_accum}
+
+
+def kernel_launches() -> dict:
+    return {name: fn.launches for name, fn in _counted().items()}
 
 
 def reset_launches() -> None:
-    from km_tpu_torch.ops import pack, sort_runs
-
-    pack.pack_canonical_windows.launches = 0
-    sort_runs.sort_chunks_runs.launches = 0
+    for fn in _counted().values():
+        fn.launches = 0
 
 
-def check_launches(launches: dict, what: str) -> dict:
-    if min(launches.values()) == 0:
-        raise AssertionError("%s: a kernel of the path was not launched: %s"
-                             % (what, launches))
+def check_launches(launches: dict, path: str) -> dict:
+    """Raises unless exactly the kernels of the path were launched."""
+    ran = {name for name, n in launches.items() if n}
+    if ran != set(PATH_KERNELS[path]):
+        raise AssertionError("%s: launches %s, but the path runs %s"
+                             % (path, launches, PATH_KERNELS[path]))
     return launches
 
 
@@ -677,7 +901,7 @@ def phase_count_chunked(device, workdir: str, fastq: str) -> dict:
     reset_launches()
     _, chunked = run_cli(argv + ["--mode", "chunked", "-o", tables["chunked"],
                                  prefix])
-    launches = check_launches(kernel_launches(), "count --mode chunked")
+    launches = check_launches(kernel_launches(), "chunked")
     rss_after = peak_rss_mb()
     _, stream = run_cli(argv + ["--mode", "stream", "-o", tables["stream"],
                                 prefix])
@@ -693,7 +917,8 @@ def phase_count_chunked(device, workdir: str, fastq: str) -> dict:
     if chunked["total"] != windows:
         raise AssertionError("chunked counts sum to %d, expected %d windows"
                              % (chunked["total"], windows))
-    if not (launches["pack"] == launches["sort_runs"] == chunked["chunks"]
+    if not (launches["pack"] == launches["sort_runs"]
+            == launches["chunk_runs"] == chunked["chunks"]
             == chunked["pack_launches"] == chunked["sort_runs_launches"]):
         raise AssertionError("chunked: launches %s for %d chunks"
                              % (launches, chunked["chunks"]))
@@ -760,7 +985,7 @@ def phase_scale_count(device) -> dict:
     record, keys, _counts = scale_count(SCALE_CHUNKS, SCALE_CAPACITY,
                                         device=device)
     launches = check_launches(kernel_launches(), "scale_count")
-    if not launches["pack"] == launches["sort_runs"] == SCALE_CHUNKS:
+    if set(launches.values()) != {SCALE_CHUNKS}:
         raise AssertionError("scale_count: launches %s for %d chunks"
                              % (launches, SCALE_CHUNKS))
     if not (np.diff(keys.astype(np.int64)) > 0).all():
@@ -847,7 +1072,7 @@ def phase_sharded(device, workdir: str, fastq: str) -> dict:
                                      chunk=CHUNK["cuda"], device=device,
                                      stats=stats)
         out["sharded_count_s"] = time.perf_counter() - t0
-        out["launches"] = check_launches(kernel_launches(), "sharded_count")
+        out["launches"] = check_launches(kernel_launches(), "sharded")
         t0 = time.perf_counter()
         want_k, want_c = count_batches_device_stream(
             iter(batches), K, min_count=2, chunk=CHUNK["cuda"],
@@ -973,12 +1198,14 @@ def phase_cohort(device, workdir: str, fastq: str, counted_table: str
                       r"table ([\d.]+), catalog ([\d.]+), reports ([\d.]+)\)",
                       proc.stderr)}
     m = re.search(r"done in ([\d.]+)s .*kernel launches: pack (\d+), "
-                  r"sort_runs (\d+)", proc.stderr)
+                  r"sort_runs (\d+), chunk_runs (\d+), merge_accum (\d+)",
+                  proc.stderr)
     if m is None or len(per_sample) != 3:
         raise AssertionError("cohort's summary lines are missing:\n%s"
                              % proc.stderr[-4000:])
-    launches = check_launches({"pack": int(m[2]), "sort_runs": int(m[3])},
-                              "cohort")
+    launches = check_launches(
+        dict(zip(("pack", "sort_runs", "chunk_runs", "merge_accum"),
+                 map(int, m.groups()[1:]))), "cohort")
     command_s = float(m[1])
 
     files = report_tree(out_dir)
@@ -1060,6 +1287,7 @@ def main(argv=None) -> int:
     sys.path.insert(0, REPO)
     from km_tpu_torch import _build, native
     from km_tpu_torch.device import resolve_device
+    from km_tpu_torch.scripts.merge_cases import sample_shape
 
     device = resolve_device("cuda:0")
     smi = subprocess.run(
@@ -1095,6 +1323,13 @@ def main(argv=None) -> int:
     say("kernel_sort_runs", **kernels["sort_runs"])
     kernels["sort_chunks"] = kernel_sort_chunks(device)
     say("kernel_sort_chunks", **kernels["sort_chunks"])
+    acc, sorted_runs = sample_shape(device)
+    kernels["chunk_runs"] = kernel_chunk_runs(device, sorted_runs)
+    say("kernel_chunk_runs", **kernels["chunk_runs"])
+    kernels["merge_accum"] = kernel_merge_accum(device, acc, sorted_runs)
+    say("kernel_merge_accum", **kernels["merge_accum"])
+    del acc, sorted_runs
+    torch.cuda.empty_cache()
 
     if opts.kernels_only:
         return 0
@@ -1139,19 +1374,23 @@ def main(argv=None) -> int:
     launches["sort_chunks"] = kernels["sort_chunks"]["launches"]
     replaces = {"pack": "km_tpu/ops/pallas_pack.py:77",
                 "sort_runs": "km_tpu/ops/pallas_sort.py:102",
-                "sort_chunks": "km_tpu/ops/pallas_sort.py:68"}
+                "sort_chunks": "km_tpu/ops/pallas_sort.py:68",
+                # XLA programs, no Pallas
+                "chunk_runs": "km_tpu/ops/count.py:195",
+                "merge_accum": "km_tpu/ops/count.py:369"}
     sources = {"pack": "pack", "sort_runs": "sort_runs",
-               "sort_chunks": "sort_runs"}
-    by_path = {name: {"main": launches[name],
-                      "chunked": chunked["launches"][name],
-                      "scale_count": scale["launches"][name],
-                      "sharded": sharded["launches"][name],
-                      "cohort": cohort["launches"][name]}
-               for name in ("pack", "sort_runs")}
+               "sort_chunks": "sort_runs", "chunk_runs": "merge_runs",
+               "merge_accum": "merge_runs"}
+    paths = {"main": launches, "chunked": chunked["launches"],
+             "scale_count": scale["launches"], "sharded": sharded["launches"],
+             "cohort": cohort["launches"]}
+    by_path = {name: {path: got[name] for path, got in paths.items()}
+               for name in launches if name != "sort_chunks"}
     report = [dict(name=name, route="cuda",
                    source="km_tpu_torch/csrc/%s.cu" % sources[name],
                    replaces=replaces[name],
-                   path=",".join(by_path.get(name, ["none"])),
+                   path=",".join(p for p, n in by_path.get(name, {}).items()
+                                 if n) or "none",
                    launches=launches[name],
                    launches_by_path=by_path.get(name, {}),
                    max_abs_err=m["max_abs_err"], ms=m["ms"],

@@ -149,6 +149,12 @@ def lib():
         handle.km_sort_runs.restype = i32
         handle.km_sort_chunks.argtypes = [vp, i64, i32, vp, vp]
         handle.km_sort_chunks.restype = i32
+        handle.km_chunk_runs.argtypes = [vp, vp, i64, i32, vp, vp, vp, vp,
+                                         vp, vp, vp, i64, vp, vp]
+        handle.km_chunk_runs.restype = i32
+        handle.km_merge_accum.argtypes = [vp, vp, vp, i64, vp, vp, vp, i64,
+                                          vp, vp, vp, vp, i64, vp]
+        handle.km_merge_accum.restype = i32
         _lib = handle
     return _lib
 

@@ -1,4 +1,4 @@
-"""K-mer counting on the device: sort + segment sum, as in km_tpu.
+"""K-mer counting on the device: sort + merge of sorted runs, as in km_tpu.
 
 Replaces the device half of km_tpu/ops/count.py (count_chunk_device,
 sum_runs_device, merge_accum_device, count_batches_device_stream,
@@ -11,13 +11,16 @@ Per fixed-size chunk of read bases, uploaded as codes and flags:
   pack_canonical_windows (CUDA kernel)  -> one int64 key per position
   sort_chunks_runs (CUDA kernel)        -> keys sorted per 2^14-key chunk,
                                            run lengths at run starts
-  merge_accum_device (torch)            -> merged into a device-resident
+  chunk_runs (CUDA kernel)              -> the chunk's runs in key order
+  merge_accum (CUDA kernel)             -> merged into a device-resident
                                            accumulator of C unique keys
-The accumulator is read back once, at the end.
+The stream keeps two accumulators of C slots and merges each chunk from
+one into the other, so the accumulator is never sorted again and no
+length is read back until the end; the result is read back once.
 
 Two defects of km_tpu's stream are not reproduced:
-- run totals are exact segment sums (sort, run ids by cumsum, int64
-  index_add_), so no ``max_run`` bound can undercount;
+- run totals are exact (differences of an int64 prefix sum, no
+  ``max_run`` bound that can undercount);
 - the overflow check reads a running maximum of the unique-key count,
   so an overflow that truncated keys raises even when a later chunk
   brings no new key.
@@ -46,6 +49,7 @@ import torch
 from .. import native
 from ..device import SENTINEL, check_k, i64_to_u64, resolve_device
 from . import encode
+from .merge import chunk_runs, merge_accum
 from .pack import pack_canonical_windows
 from .sort_runs import CHUNK, sort_chunks_runs
 
@@ -176,8 +180,9 @@ def sum_runs_device(keys: torch.Tensor, counts: torch.Tensor
     """Unsorted (key, count) records -> (sorted keys, each key's summed
     int64 count at its run start, 0 elsewhere). Exact for any run
     length: run ids come from a cumsum over run starts and totals from
-    an int64 index_add_. (A reverse-cummin formulation with no atomics
-    measured 4x slower on the card.)"""
+    an int64 index_add_. The sharded exchange sums the runs it receives
+    with it: they come from every rank at once and keep no order that
+    ``chunk_runs`` could use."""
     skeys, order = torch.sort(keys)
     scnt = counts.to(torch.int64)[order]
     n = skeys.numel()
@@ -190,34 +195,32 @@ def sum_runs_device(keys: torch.Tensor, counts: torch.Tensor
                               torch.zeros_like(totals))
 
 
-def merge_accum_device(acc_keys: torch.Tensor, acc_cnt: torch.Tensor,
-                       keys: torch.Tensor, counts: torch.Tensor, C: int):
-    """Merge (key, count) runs into the accumulator of capacity C.
-
-    The accumulator holds up to C unique keys in ascending order, then
-    SENTINEL padding with count 0. Entries with count 0 are keyed to
-    SENTINEL, all records are summed per key, and the survivors are
-    compacted to the front in key order. Returns (keys [C], counts [C],
-    n_unique); n_unique > C means the result was truncated."""
-    dev = acc_keys.device
-    k = torch.cat([acc_keys, keys])
-    c = torch.cat([acc_cnt, counts.to(torch.int64)])
-    k = torch.where(c == 0, torch.full_like(k, SENTINEL), k)
-    skeys, tot = sum_runs_device(k, c)
-    alive = (tot > 0) & (skeys != SENTINEL)
-    dest = torch.cumsum(alive, 0) - 1
-    # survivors past C, and the dead, go to a trash slot at index C
-    slot = torch.where(alive & (dest < C), dest, torch.full_like(dest, C))
-    out_keys = torch.full((C + 1,), SENTINEL, dtype=torch.int64, device=dev)
-    out_cnt = torch.zeros(C + 1, dtype=torch.int64, device=dev)
-    out_keys.scatter_(0, slot, skeys)
-    out_cnt.scatter_(0, slot, tot)
-    return out_keys[:C], out_cnt[:C], alive.sum()
-
-
-def empty_accumulator(C: int, device) -> tuple[torch.Tensor, torch.Tensor]:
+def empty_accumulator(C: int, device
+                      ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """(keys [C] of SENTINEL, counts [C] of 0, live length 0 as a 0-d
+    int64 tensor) on device."""
     return (torch.full((C,), SENTINEL, dtype=torch.int64, device=device),
-            torch.zeros(C, dtype=torch.int64, device=device))
+            torch.zeros(C, dtype=torch.int64, device=device),
+            torch.zeros((), dtype=torch.int64, device=device))
+
+
+def merge_accum_device(acc, keys: torch.Tensor, lengths: torch.Tensor, out,
+                       sort_chunk: int = CHUNK):
+    """Merge one chunk's sort output (keys sorted within sort_chunk
+    pieces, int32 run lengths at run starts, 0 elsewhere) into the
+    accumulator ``acc``.
+
+    acc and out are accumulator triples of one capacity C (keys [C],
+    counts [C], live length as a 0-d int64 tensor), as
+    ``empty_accumulator`` makes them and this function leaves them:
+    ascending unique keys, then SENTINEL padding with count 0. The
+    chunk's runs are put in key order (``chunk_runs``) and merged into
+    ``out``, which must not be ``acc``. Returns out, whose live length
+    is the number of unique keys; more than C means the result was
+    truncated to the first C keys."""
+    run_keys, run_cnt, m = chunk_runs(keys, lengths, sort_chunk)
+    merge_accum(*acc, run_keys, run_cnt, m, *out)
+    return out
 
 
 def _timed(gen, spent: list):
@@ -253,9 +256,9 @@ def count_batches_device_stream(batches, k: int, canonical: bool = True,
         raise ValueError("chunk must exceed k")
     dev = resolve_device(device)
     C = capacity
-    acc_keys, acc_cnt = empty_accumulator(C, dev)
-    n_unique = torch.zeros((), dtype=torch.int64, device=dev)
-    max_unique = n_unique.clone()
+    # the chunk merges from one accumulator into the other, then they swap
+    acc, spare = empty_accumulator(C, dev), empty_accumulator(C, dev)
+    max_unique = torch.zeros((), dtype=torch.int64, device=dev)
     n_chunks = 0
     input_s = [0.0]
     chunks = chunk_stream(_coalesce_batches(batches, k, 4 * chunk), chunk, k)
@@ -263,15 +266,16 @@ def count_batches_device_stream(batches, k: int, canonical: bool = True,
         rkeys, rlen = count_chunk_device(
             torch.from_numpy(codes).to(dev), torch.from_numpy(valid).to(dev),
             k, canonical=canonical, sort_chunk=sort_chunk)
-        acc_keys, acc_cnt, n_unique = merge_accum_device(
-            acc_keys, acc_cnt, rkeys, rlen, C)
-        torch.maximum(max_unique, n_unique, out=max_unique)
+        acc, spare = merge_accum_device(acc, rkeys, rlen, spare,
+                                        sort_chunk=sort_chunk), acc
+        torch.maximum(max_unique, acc[2], out=max_unique)
         n_chunks += 1
         if n_chunks % OVERFLOW_CHECK_EVERY == 0 and int(max_unique) > C:
             raise CountCapacityOverflow(C)
     if int(max_unique) > C:
         raise CountCapacityOverflow(C)
 
+    acc_keys, acc_cnt, n_unique = acc
     nu = int(n_unique)
     keys = acc_keys[:nu].cpu().numpy()
     cnt = acc_cnt[:nu].cpu().numpy()
@@ -289,16 +293,14 @@ def chunk_runs_device(codes: torch.Tensor, valid: torch.Tensor, k: int,
     ascending and distinct, int64 counts > 0), on the chunk's device.
 
     The chunk sort orders keys only within sort_chunk-sized pieces, and a
-    host k-way merge needs each run sorted as a whole, so the live run
-    starts are sorted again across the chunk; a key that spans
-    sort-chunks is summed here (exactly, sum_runs_device), which also
-    makes the readback as small as it can be."""
+    host k-way merge needs each run sorted as a whole, so ``chunk_runs``
+    merges the pieces' live run starts; a key that spans pieces is summed
+    there, which also makes the readback as small as it can be."""
     keys, lengths = count_chunk_device(codes, valid, k, canonical=canonical,
                                        sort_chunk=sort_chunk)
-    live = lengths > 0  # run starts of real keys; SENTINEL runs are 0
-    skeys, totals = sum_runs_device(keys[live], lengths[live])
-    first = totals > 0
-    return skeys[first], totals[first]
+    run_keys, run_cnt, m = chunk_runs(keys, lengths, sort_chunk)
+    m = int(m)
+    return run_keys[:m], run_cnt[:m]
 
 
 class _RunReadback:

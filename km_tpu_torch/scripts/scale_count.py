@@ -10,7 +10,8 @@ FASTQ on the host is the ``count`` subcommand's.
 
 Per chunk, all on the device:
   synthesize 2^24 bases -> window pack (CUDA kernel) -> chunk sort with
-  runs (CUDA kernel) -> merge into the resident accumulator (torch).
+  runs (CUDA kernel) -> the chunk's runs in key order (CUDA kernel) ->
+  merged from one resident accumulator into the other (CUDA kernel).
 The accumulator is read back once, at the end.
 
     python -m km_tpu_torch.scripts.scale_count [--chunks N] [--capacity LOG2]
@@ -38,6 +39,7 @@ import torch
 from ..device import i64_to_u64, resolve_device
 from ..ops.count import (CountCapacityOverflow, count_chunk_device,
                          empty_accumulator, merge_accum_device)
+from ..ops.merge import chunk_runs, merge_accum
 from ..ops.pack import pack_canonical_windows
 from ..ops.sort_runs import CHUNK as SORT_CHUNK
 from ..ops.sort_runs import sort_chunks_runs
@@ -95,13 +97,16 @@ def scale_count(chunks: int = 64, capacity: int = 1 << 23,
     k-mers raise CountCapacityOverflow."""
     dev = resolve_device(device)
     on_card = dev.type == "cuda"
-    launches0 = (pack_canonical_windows.launches, sort_chunks_runs.launches)
+    launches0 = (pack_canonical_windows.launches, sort_chunks_runs.launches,
+                 chunk_runs.launches, merge_accum.launches)
     if on_card:
         torch.cuda.reset_peak_memory_stats(dev)
     synth = ChunkSynthesizer(
         torch.from_numpy(reference_chunk(chunk, ref_log2)).to(dev))
     valid = torch.ones(chunk, dtype=torch.bool, device=dev)
-    acc_keys, acc_cnt = empty_accumulator(capacity, dev)
+    # each chunk merges from one accumulator into the other
+    acc = empty_accumulator(capacity, dev)
+    spare = empty_accumulator(capacity, dev)
     max_unique = torch.zeros((), dtype=torch.int64, device=dev)
 
     def sync():
@@ -109,23 +114,22 @@ def scale_count(chunks: int = 64, capacity: int = 1 << 23,
             torch.cuda.synchronize(dev)
 
     def one_chunk(idx):
-        nonlocal acc_keys, acc_cnt
+        nonlocal acc, spare
         rkeys, rlen = count_chunk_device(synth(idx), valid, k, canonical=True,
                                          sort_chunk=sort_chunk)
-        acc_keys, acc_cnt, n_unique = merge_accum_device(
-            acc_keys, acc_cnt, rkeys, rlen, capacity)
-        torch.maximum(max_unique, n_unique, out=max_unique)
-        return n_unique
+        acc, spare = merge_accum_device(acc, rkeys, rlen, spare,
+                                        sort_chunk=sort_chunk), acc
+        torch.maximum(max_unique, acc[2], out=max_unique)
 
     # the warm chunk (kernel load, allocator growth) is timed apart
     t0 = time.perf_counter()
-    n_unique = one_chunk(0)
+    one_chunk(0)
     sync()
     first_s = time.perf_counter() - t0
 
     t0 = time.perf_counter()
     for idx in range(1, chunks):
-        n_unique = one_chunk(idx)
+        one_chunk(idx)
     sync()
     steady_s = time.perf_counter() - t0
     if int(max_unique) > capacity:
@@ -133,6 +137,7 @@ def scale_count(chunks: int = 64, capacity: int = 1 << 23,
 
     # the one readback of the table, timed apart from the counting rate
     t0 = time.perf_counter()
+    acc_keys, acc_cnt, n_unique = acc
     nu = int(n_unique)
     keys = i64_to_u64(acc_keys[:nu].cpu().numpy())
     cnt = acc_cnt[:nu].cpu().numpy()
@@ -166,6 +171,8 @@ def scale_count(chunks: int = 64, capacity: int = 1 << 23,
         "total_kmers": total,
         "pack_launches": pack_canonical_windows.launches - launches0[0],
         "sort_runs_launches": sort_chunks_runs.launches - launches0[1],
+        "chunk_runs_launches": chunk_runs.launches - launches0[2],
+        "merge_accum_launches": merge_accum.launches - launches0[3],
     }
     return record, keys, cnt
 

@@ -40,7 +40,7 @@ from ..models.batch import run_catalog
 from ..models.quant import PathRow
 from ..models.sequence import TargetSeq
 from ..models.table import CountTable
-from ..ops import pack, sort_runs
+from ..ops import merge, pack, sort_runs
 from ..parallel import distributed
 from .batchmode import prepare_table
 from .count import count_read_files
@@ -80,8 +80,9 @@ def main_cohort(args, argparser):
     reports); the last line also gives the launches of the counting
     kernels in this command."""
     t0 = time.time()
-    launches0 = (pack.pack_canonical_windows.launches,
-                 sort_runs.sort_chunks_runs.launches)
+    counters = (pack.pack_canonical_windows, sort_runs.sort_chunks_runs,
+                merge.chunk_runs, merge.merge_accum)
+    launches0 = [fn.launches for fn in counters]
     targets, paths = [], []
     for seq_f in expand_target_files([args.targets]):
         name, _ = os.path.splitext(os.path.basename(seq_f))
@@ -121,7 +122,8 @@ def main_cohort(args, argparser):
     if not my_samples:
         sys.stderr.write("cohort: no samples for process %d\n" % rank)
     sys.stderr.write("cohort: done in %.3fs (%d sample(s) on process %d/%d; "
-                     "kernel launches: pack %d, sort_runs %d)\n"
+                     "kernel launches: pack %d, sort_runs %d, chunk_runs %d, "
+                     "merge_accum %d)\n"
                      % (time.time() - t0, len(my_samples), rank, n_procs,
-                        pack.pack_canonical_windows.launches - launches0[0],
-                        sort_runs.sort_chunks_runs.launches - launches0[1]))
+                        *(fn.launches - n0
+                          for fn, n0 in zip(counters, launches0))))

@@ -154,8 +154,10 @@ def test_accumulator_carried_across_gives_same_merge():
     acc_keys, acc_cnt = accumulator_from_jax(*acc)
     assert (acc_keys[int(jnp.sum(acc[2] > 0)):] == SENTINEL).all()
     rkeys = torch.from_numpy(split_to_i64(np.asarray(rhi), np.asarray(rlo)))
+    acc_n = (acc_keys != SENTINEL).sum()
     keys, cnt, nu = tcount.merge_accum_device(
-        acc_keys, acc_cnt, rkeys, torch.tensor(np.asarray(rcnt)), C)
+        (acc_keys, acc_cnt, acc_n), rkeys, torch.tensor(np.asarray(rcnt)),
+        tcount.empty_accumulator(C, "cpu"))
     # the live prefix is equal; past it km_tpu leaves keys with count 0
     # (its compaction sorts the dead entries behind the live ones), the
     # port leaves SENTINEL: both are empty slots to the next merge

@@ -21,10 +21,14 @@ from km_tpu_torch.models.batch import run_catalog
 from km_tpu_torch.models.pathfinder import OverlapGraph
 from km_tpu_torch.models.sequence import TargetSeq
 from km_tpu_torch.models.table import CountTable
-from km_tpu_torch.ops import batch_walk, count, pack, pathgraph, sort_runs
-from km_tpu_torch.ops.count import count_batches_host
+from km_tpu_torch.ops import (batch_walk, count, merge, pack, pathgraph,
+                              sort_runs)
+from km_tpu_torch.ops.count import count_batches_host, empty_accumulator
 from km_tpu_torch.ops.device_table import DeviceCountTable
 from km_tpu_torch.refdata import DATA_DIR, catalog_dir
+from km_tpu_torch.scripts.merge_cases import (CASES, SORT_CHUNK, SORT_CHUNKS,
+                                              accumulator, make_case,
+                                              sample_shape, sorted_chunk)
 
 KS = [2, 15, 16, 17, 21, 31]
 
@@ -172,3 +176,77 @@ def test_stream_on_card_matches_host(cuda_device):
         device=cuda_device)
     np.testing.assert_array_equal(dk, hk)
     np.testing.assert_array_equal(dc, hc)
+
+
+def _merge_kernels_match_plain(acc, runs, C, sort_chunk, dev):
+    """M1 and M2 against their plain versions on the same inputs: equal
+    runs and run count, and equal output buffers and n_unique bit for
+    bit; one launch of each."""
+    launches = (merge.chunk_runs.launches, merge.merge_accum.launches)
+    got_k, got_c, got_m = merge.chunk_runs(*runs, sort_chunk)
+    want_k, want_c, want_m = merge.chunk_runs_plain(*runs, sort_chunk)
+    m = int(want_m)
+    assert int(got_m) == m
+    assert torch.equal(got_k[:m], want_k[:m])
+    assert torch.equal(got_c[:m], want_c[:m])
+    outs = []
+    for fn in (merge.merge_accum, merge.merge_accum_plain):
+        out = empty_accumulator(C, dev)
+        fn(*acc, got_k, got_c, got_m, *out)
+        outs.append(out)
+    for got, want in zip(*outs):
+        assert torch.equal(got, want)
+    assert (merge.chunk_runs.launches, merge.merge_accum.launches) == (
+        launches[0] + 1, launches[1] + 1)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", CASES)
+def test_merge_kernels_match_plain(cuda_device, case):
+    acc, counts, chunk, C = make_case(case)
+    _merge_kernels_match_plain(
+        accumulator(acc, counts, C, cuda_device),
+        sorted_chunk(chunk, SORT_CHUNK, cuda_device), C, SORT_CHUNK,
+        cuda_device)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("sort_chunk", SORT_CHUNKS)
+def test_merge_kernels_every_sort_chunk(cuda_device, sort_chunk):
+    acc, counts, chunk, C = make_case("ragged", sort_chunk=sort_chunk)
+    _merge_kernels_match_plain(
+        accumulator(acc, counts, C, cuda_device),
+        sorted_chunk(chunk, sort_chunk, cuda_device), C, sort_chunk,
+        cuda_device)
+
+
+@pytest.mark.cuda
+def test_merge_accum_restores_padding_on_card(cuda_device):
+    """A merge into a buffer that held more keys than the result pads
+    again exactly the slots that were live, as the plain version does."""
+    acc, counts, chunk, C = make_case("all_new")
+    runs = merge.chunk_runs(*sorted_chunk(chunk, SORT_CHUNK, cuda_device),
+                            SORT_CHUNK)
+    big = empty_accumulator(C, cuda_device)
+    merge.merge_accum(*accumulator(acc, counts, C, cuda_device), *runs, *big)
+    small = accumulator(acc[:10], counts[:10], C, cuda_device)
+    few = torch.tensor(5, dtype=torch.int64, device=cuda_device)
+    assert int(big[2]) > 15
+    outs = []
+    for fn in (merge.merge_accum, merge.merge_accum_plain):
+        out = tuple(t.clone() for t in big)
+        fn(*small, *runs[:2], few, *out)
+        outs.append(out)
+    for got, want in zip(*outs):
+        assert torch.equal(got, want)
+    n = int(outs[0][2])
+    assert n == 15
+    assert (outs[0][0][n:] == SENTINEL).all()
+    assert (outs[0][1][n:] == 0).all()
+
+
+@pytest.mark.cuda
+def test_merge_kernels_at_the_sample_shape(cuda_device):
+    acc, runs = sample_shape(cuda_device)
+    _merge_kernels_match_plain(acc, runs, acc[0].numel(), sort_runs.CHUNK,
+                               cuda_device)
