@@ -13,9 +13,10 @@ keys equal, all sentinels, sorted and reverse sorted; every k of
 1, 2, 15, 16, 17, 31, n below k, invalid bases at tile and thread-run
 boundaries). The two merge kernels (the chunk's runs, the accumulator
 merge) are held against theirs at the sample's shape (2.6e7 keys in 2^26
-slots, one chunk of 2^24 windows) and on the cases of
+slots, one chunk of 2^24 windows), at scale_count's (a chunk whose
+windows are nearly all distinct) and on the cases of
 km_tpu_torch/scripts/merge_cases.py, and timed beside the torch merge
-they replace.
+they replace (the chunk's runs also beside torch.unique).
 Then drives the user's workflow
 through the port's CLI at the size of one RNA-seq sample: ``count`` a
 synthetic FASTQ of 2^30 bases on the card, ``find_mutation --batch``
@@ -421,12 +422,12 @@ def check_merge_accum(acc, runs, what: str):
 
 def merge_edges(device, kernel: str) -> int:
     """M1 or M2 against its plain version on every edge case (each case
-    at the default piece size, and a ragged input at every piece size);
-    returns the number of cases held equal."""
+    at its piece size, and a ragged input at every piece size); returns
+    the number of cases held equal."""
     from km_tpu_torch.ops import merge
     from km_tpu_torch.scripts import merge_cases as mc
 
-    cases = ([(name, mc.SORT_CHUNK) for name in mc.CASES]
+    cases = ([(name, mc.piece_size(name)) for name in mc.CASES + mc.CARD_CASES]
              + [("ragged", sc) for sc in mc.SORT_CHUNKS])
     for name, sc in cases:
         acc, counts, chunk, C = mc.make_case(name, sort_chunk=sc)
@@ -450,56 +451,62 @@ def library_chunk_runs(keys):
     return torch.unique(keys, sorted=True, return_counts=True)
 
 
-def kernel_chunk_runs(device, runs) -> dict:
-    """M1 at the sample's shape: one chunk of 2^24 windows."""
+def chunk_runs_fields(runs, what: str) -> dict:
+    """M1 on one chunk sort's output: held equal to its plain version and
+    to torch.unique, and timed beside both and the old torch form."""
     import torch
 
     from km_tpu_torch.device import SENTINEL
     from km_tpu_torch.ops import merge
     from km_tpu_torch.ops.sort_runs import CHUNK
 
-    edge_cases = merge_edges(device, "chunk_runs")
-    got, err = check_chunk_runs(runs, CHUNK, "the sample's shape")
+    got, err = check_chunk_runs(runs, CHUNK, what)
     n, m = runs[0].numel(), int(got[2])
     lib_k, lib_c = library_chunk_runs(runs[0])
     if lib_k.numel() and int(lib_k[-1]) == SENTINEL:
         lib_k, lib_c = lib_k[:-1], lib_c[:-1]
     if not (torch.equal(lib_k, got[0][:m]) and torch.equal(lib_c, got[1][:m])):
-        raise AssertionError("torch.unique differs from chunk_runs: %d vs %d "
-                             "keys" % (lib_k.numel(), m))
+        raise AssertionError("torch.unique differs from chunk_runs (%s): %d "
+                             "vs %d keys" % (what, lib_k.numel(), m))
     ms = cuda_time_ms(lambda: merge.chunk_runs(*runs, CHUNK))
     plain_ms = cuda_time_ms(lambda: merge.chunk_runs_plain(*runs, CHUNK),
                             iters=3)
     library_ms = cuda_time_ms(lambda: library_chunk_runs(runs[0]))
     old_ms = cuda_time_ms(lambda: old_chunk_runs(*runs), iters=3)
-    # the alternative the merge tree was weighed against: the live run
-    # starts sorted by torch.sort (radix sort), before any reduction
-    live = runs[1] > 0
-    sort_ms = cuda_time_ms(lambda: torch.sort(runs[0][live]), iters=3)
+    live = int((runs[1] > 0).sum())
     # a key and a run length in, a key and an int64 count out per run
     bound = bound_ms(n * (8 + 4) + m * 16)
-    return dict(n=n, runs=m, edge_cases=edge_cases, max_abs_err=err, ms=ms,
+    return dict(n=n, live_run_starts=live, runs=m, max_abs_err=err, ms=ms,
                 plain_ms=plain_ms, bound_ms=bound, bound_by="bytes",
                 share_of_bound=bound / ms, library_ms=library_ms,
-                old_torch_ms=old_ms, torch_sort_of_live_ms=sort_ms,
+                old_torch_ms=old_ms,
                 kernels_ms=device_times(
                     lambda: merge.chunk_runs(*runs, CHUNK)))
 
 
-def kernel_merge_accum(device, acc, sorted_runs) -> dict:
-    """M2 at the sample's shape: one chunk's runs (M1 of the chunk sort's
-    output) into 2.6e7 keys in 2^26 slots. No single PyTorch call merges
-    two sorted sequences and sums the counts of equal keys."""
+def kernel_chunk_runs(device, runs, scale_runs) -> dict:
+    """M1 at the sample's shape (one chunk of 2^24 windows) and at
+    scale_count's (nearly every window of a piece distinct)."""
+    edge_cases = merge_edges(device, "chunk_runs")
+    out = chunk_runs_fields(runs, "the sample's shape")
+    return dict(out, edge_cases=edge_cases,
+                at_scale_count=chunk_runs_fields(scale_runs,
+                                                 "scale_count's shape"))
+
+
+def merge_accum_fields(acc, sorted_runs, what: str) -> dict:
+    """M2 on one chunk's runs (M1 of the chunk sort's output) into an
+    accumulator: held equal to its plain version, and timed beside it,
+    the old torch merge, and M1 and M2 together."""
     from km_tpu_torch.ops import merge
     from km_tpu_torch.ops.count import empty_accumulator
     from km_tpu_torch.ops.sort_runs import CHUNK
 
-    edge_cases = merge_edges(device, "merge_accum")
     runs = merge.chunk_runs(*sorted_runs, CHUNK)
-    got, err = check_merge_accum(acc, runs, "the sample's shape")
+    got, err = check_merge_accum(acc, runs, what)
     slots = acc[0].numel()
     la, m, nu = int(acc[2]), int(runs[2]), int(got[2])
-    out = empty_accumulator(slots, device)
+    out = empty_accumulator(slots, acc[0].device)
     ms = cuda_time_ms(lambda: merge.merge_accum(*acc, *runs, *out))
     plain_ms = cuda_time_ms(
         lambda: merge.merge_accum_plain(*acc, *runs, *out), iters=3)
@@ -511,13 +518,24 @@ def kernel_merge_accum(device, acc, sorted_runs) -> dict:
         *acc, *merge.chunk_runs(*sorted_runs, CHUNK), *out))
     # both live inputs in, the live output out, 16 bytes a record
     bound = bound_ms((la + m + min(nu, slots)) * 16)
-    return dict(slots=slots, live=la, runs=m, n_unique=nu,
-                edge_cases=edge_cases, max_abs_err=err, ms=ms,
-                plain_ms=plain_ms, bound_ms=bound, bound_by="bytes",
+    return dict(slots=slots, live=la, runs=m, n_unique=nu, max_abs_err=err,
+                ms=ms, plain_ms=plain_ms, bound_ms=bound, bound_by="bytes",
                 share_of_bound=bound / ms, library_ms=None,
                 old_torch_ms=old_ms, m1_and_m2_ms=m1_m2_ms,
                 kernels_ms=device_times(
                     lambda: merge.merge_accum(*acc, *runs, *out)))
+
+
+def kernel_merge_accum(device, acc, sorted_runs, scale_acc,
+                       scale_runs) -> dict:
+    """M2 at the sample's shape (a chunk's runs into 2.6e7 keys in 2^26
+    slots) and at scale_count's. No single PyTorch call merges two sorted
+    sequences and sums the counts of equal keys."""
+    edge_cases = merge_edges(device, "merge_accum")
+    out = merge_accum_fields(acc, sorted_runs, "the sample's shape")
+    return dict(out, edge_cases=edge_cases,
+                at_scale_count=merge_accum_fields(scale_acc, scale_runs,
+                                                  "scale_count's shape"))
 
 
 # ---------------------------------------------------------------------------
@@ -1287,7 +1305,7 @@ def main(argv=None) -> int:
     sys.path.insert(0, REPO)
     from km_tpu_torch import _build, native
     from km_tpu_torch.device import resolve_device
-    from km_tpu_torch.scripts.merge_cases import sample_shape
+    from km_tpu_torch.scripts.merge_cases import sample_shape, scale_shape
 
     device = resolve_device("cuda:0")
     smi = subprocess.run(
@@ -1324,11 +1342,14 @@ def main(argv=None) -> int:
     kernels["sort_chunks"] = kernel_sort_chunks(device)
     say("kernel_sort_chunks", **kernels["sort_chunks"])
     acc, sorted_runs = sample_shape(device)
-    kernels["chunk_runs"] = kernel_chunk_runs(device, sorted_runs)
+    scale_acc, scale_runs = scale_shape(device)
+    kernels["chunk_runs"] = kernel_chunk_runs(device, sorted_runs,
+                                              scale_runs)
     say("kernel_chunk_runs", **kernels["chunk_runs"])
-    kernels["merge_accum"] = kernel_merge_accum(device, acc, sorted_runs)
+    kernels["merge_accum"] = kernel_merge_accum(device, acc, sorted_runs,
+                                                scale_acc, scale_runs)
     say("kernel_merge_accum", **kernels["merge_accum"])
-    del acc, sorted_runs
+    del acc, sorted_runs, scale_acc, scale_runs
     torch.cuda.empty_cache()
 
     if opts.kernels_only:

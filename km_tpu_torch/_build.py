@@ -149,9 +149,13 @@ def lib():
         handle.km_sort_runs.restype = i32
         handle.km_sort_chunks.argtypes = [vp, i64, i32, vp, vp]
         handle.km_sort_chunks.restype = i32
-        handle.km_chunk_runs.argtypes = [vp, vp, i64, i32, vp, vp, vp, vp,
-                                         vp, vp, vp, i64, vp, vp]
+        handle.km_chunk_runs_scratch.argtypes = [i64, i32]
+        handle.km_chunk_runs_scratch.restype = i64
+        handle.km_chunk_runs.argtypes = [vp, vp, i64, i32, vp, vp, vp, i64,
+                                         vp, vp]
         handle.km_chunk_runs.restype = i32
+        handle.km_merge_accum_scratch.argtypes = [i64, i64]
+        handle.km_merge_accum_scratch.restype = i64
         handle.km_merge_accum.argtypes = [vp, vp, vp, i64, vp, vp, vp, i64,
                                           vp, vp, vp, vp, i64, vp]
         handle.km_merge_accum.restype = i32

@@ -19,10 +19,16 @@ for CPU tensors. Together they replace km_tpu's XLA merge programs
   number of distinct keys, which may exceed C.
 
 Lengths stay on the device, so a stream of chunks never waits for the
-card. The plain versions repeat the kernels' arithmetic: merge positions
-from ``searchsorted`` ranks (A[i] goes to i + #(B < A[i]), B[j] to
-j + #(A <= B[j])), run boundaries from key changes, run totals as
-differences of an int64 cumsum, ranks by cumsum; no atomics.
+card. On the card, ``chunk_runs`` is a sample sort: splitters from a
+sample of the keys, each piece's live run starts compacted and cut at
+the splitters, one block per bucket sorting and summing its slices in
+shared memory; ``merge_accum`` is one merge-path pass in tile order.
+Both take each output's rank from a decoupled look-back (csrc's design
+note). The plain versions compute the same functions with torch: the
+live run starts sorted and reduced; merge positions from ``searchsorted``
+ranks (A[i] goes to i + #(B < A[i]), B[j] to j + #(A <= B[j])); run
+boundaries from key changes, run totals as differences of an int64
+cumsum, ranks by cumsum; no atomics.
 """
 
 from __future__ import annotations
@@ -33,11 +39,12 @@ from .. import _build
 from ..device import SENTINEL
 from .sort_runs import CHUNK, _check_chunk
 
-TILE = 1024  # merged positions per block: kTile in csrc/merge_runs.cu
 
-
-def _cdiv(a: int, b: int) -> int:
-    return -(-a // b)
+def _scratch(n_bytes: int, dev: torch.device) -> torch.Tensor:
+    """A kernel's scratch (the kernel zeroes what must start at 0)."""
+    if n_bytes <= 0:
+        raise ValueError("the kernel does not take this shape")
+    return torch.empty(n_bytes, dtype=torch.uint8, device=dev)
 
 
 def _check(t: torch.Tensor, dtype: torch.dtype, name: str, dim: int = 1
@@ -109,22 +116,17 @@ def _reduce_plain(keys, counts, out_k, out_c, cap: int) -> int:
 
 def chunk_runs_plain(keys: torch.Tensor, lengths: torch.Tensor,
                      sort_chunk: int = CHUNK):
-    """``chunk_runs``' plain version: each piece's live run starts, the
-    pieces merged pairwise level by level, then reduced."""
+    """``chunk_runs``' plain version: every piece's live run starts (the
+    pieces are cut only in the kernel), sorted by key, then reduced."""
     n = keys.numel()
     dev = keys.device
-    segments = []
-    for off in range(0, max(n, 1), sort_chunk):
-        live = lengths[off:off + sort_chunk] > 0
-        segments.append((keys[off:off + sort_chunk][live],
-                         lengths[off:off + sort_chunk][live].to(torch.int64)))
-    while len(segments) > 1:
-        segments = [_merge_plain(*segments[i], *segments[i + 1])
-                    if i + 1 < len(segments) else segments[i]
-                    for i in range(0, len(segments), 2)]
+    live = lengths > 0
+    order = torch.sort(keys[live], stable=True)
     out_k = torch.empty(n, dtype=torch.int64, device=dev)
     out_c = torch.empty(n, dtype=torch.int64, device=dev)
-    m = _reduce_plain(*segments[0], out_k, out_c, n)
+    m = _reduce_plain(order.values,
+                      lengths[live].to(torch.int64)[order.indices],
+                      out_k, out_c, n)
     return out_k, out_c, torch.tensor(m, dtype=torch.int64, device=dev)
 
 
@@ -168,21 +170,13 @@ def chunk_runs(keys: torch.Tensor, lengths: torch.Tensor,
     m = torch.zeros((), dtype=torch.int64, device=dev)
     if n == 0:
         return out_k, out_c, m
-    tmp_k = torch.empty_like(out_k)
-    tmp_c = torch.empty_like(out_k)
-    pieces = _cdiv(n, sort_chunk)
-    seg0 = torch.zeros(max(pieces, 2), dtype=torch.int64, device=dev)
-    seg1 = torch.zeros(max(_cdiv(pieces, 2), 2), dtype=torch.int64,
-                       device=dev)
-    stats = torch.empty(3 * _cdiv(n, TILE) + 1, dtype=torch.int64,
-                        device=dev)
+    lib = _build.lib()
+    scratch = _scratch(lib.km_chunk_runs_scratch(n, sort_chunk), dev)
     with torch.cuda.device(dev):
-        code = _build.lib().km_chunk_runs(
+        code = lib.km_chunk_runs(
             keys.data_ptr(), lengths.data_ptr(), n, sort_chunk,
-            out_k.data_ptr(), out_c.data_ptr(), tmp_k.data_ptr(),
-            tmp_c.data_ptr(), seg0.data_ptr(), seg1.data_ptr(),
-            stats.data_ptr(), stats.numel(), m.data_ptr(),
-            _build.stream_ptr(dev))
+            out_k.data_ptr(), out_c.data_ptr(), scratch.data_ptr(),
+            scratch.numel(), m.data_ptr(), _build.stream_ptr(dev))
     _build.check(code, "chunk_runs")
     chunk_runs.launches += 1
     return out_k, out_c, m
@@ -230,14 +224,14 @@ def merge_accum(acc_keys: torch.Tensor, acc_cnt: torch.Tensor,
                           out_keys, out_cnt, out_n)
         return
     max_runs = run_keys.numel()
-    stats = torch.empty(3 * _cdiv(cap + max_runs, TILE) + 1,
-                        dtype=torch.int64, device=dev)
+    lib = _build.lib()
+    scratch = _scratch(lib.km_merge_accum_scratch(cap, max_runs), dev)
     with torch.cuda.device(dev):
-        code = _build.lib().km_merge_accum(
+        code = lib.km_merge_accum(
             acc_keys.data_ptr(), acc_cnt.data_ptr(), acc_n.data_ptr(), cap,
             run_keys.data_ptr(), run_cnt.data_ptr(), run_n.data_ptr(),
             max_runs, out_keys.data_ptr(), out_cnt.data_ptr(),
-            out_n.data_ptr(), stats.data_ptr(), stats.numel(),
+            out_n.data_ptr(), scratch.data_ptr(), scratch.numel(),
             _build.stream_ptr(dev))
     _build.check(code, "merge_accum")
     merge_accum.launches += 1

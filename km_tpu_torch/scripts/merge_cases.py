@@ -17,8 +17,17 @@ SORT_CHUNK = 1024
 SORT_CHUNKS = [1 << b for b in range(9, 15)]  # every accepted piece size
 CASES = ["empty_accumulator", "chunk_all_sentinel", "all_present", "all_new",
          "one_key_every_piece", "n_unique_C", "n_unique_C_plus_1",
-         "n_unique_3C", "ragged", "long_run"]
+         "n_unique_3C", "ragged", "long_run",
+         # 64 pieces: several of chunk_runs' buckets, several of
+         # merge_accum's tiles
+         "bucket_over_tile", "key_at_splitter_every_piece", "k16_keys",
+         "ragged_last_piece", "runs_across_tiles"]
+# more pieces than chunk_runs' tile holds records (8,192), each with one
+# key: too large for the CPU tests' chain of numpy merges
+CARD_CASES = ["key_in_more_pieces_than_tile"]
 LONG_RUN_KEY = 12345
+MANY_PIECES = 64
+MERGE_TILE = 4096  # merged positions of one merge_accum block
 
 
 def _keys(rng, n: int, odd: bool = False) -> np.ndarray:
@@ -40,7 +49,8 @@ def make_case(name: str, seed: int = 0, sort_chunk: int = SORT_CHUNK):
     """-> (acc keys int64 ascending distinct, acc counts int64 > 0, the
     chunk's window keys int64 with SENTINEL for invalid windows, the
     capacity C)."""
-    rng = np.random.default_rng([seed, CASES.index(name), sort_chunk])
+    rng = np.random.default_rng([seed, (CASES + CARD_CASES).index(name),
+                                 sort_chunk])
     n = 4 * sort_chunk
     acc = _keys(rng, 1500)
     pool = _keys(rng, n // 3, odd=True)
@@ -72,10 +82,100 @@ def make_case(name: str, seed: int = 0, sort_chunk: int = SORT_CHUNK):
         acc = np.union1d(acc, [LONG_RUN_KEY]).astype(np.int64)
         chunk = _draw(rng, pool, n)
         chunk[rng.random(n) < 0.4] = LONG_RUN_KEY
+    elif name == "bucket_over_tile":
+        # the same 100 keys in each of 128 pieces, between two of the
+        # piece's samples: no sample falls among them, so one bucket holds
+        # 12,800 records, more than chunk_runs' tile
+        pieces = 2 * MANY_PIECES
+        n = pieces * sort_chunk
+        C = 4 * n
+        low = _keys(rng, n, odd=True) >> 3  # below 2^59
+        band = (1 << 60) + (_keys(rng, 100, odd=True) >> 22)
+        high = (1 << 61) + low
+        chunk = []
+        at = sample_positions(n, sort_chunk)
+        for p in range(pieces):
+            mine = np.sort(at[(at >= p * sort_chunk)
+                              & (at < (p + 1) * sort_chunk)] - p * sort_chunk)
+            edges = np.concatenate([[-1], mine, [sort_chunk]])
+            gap = int(np.argmax(np.diff(edges)))
+            if edges[gap + 1] - edges[gap] - 1 < len(band):
+                raise AssertionError("no gap between samples holds the band")
+            below = int(edges[gap]) + 1
+            piece = np.concatenate([
+                low[p * sort_chunk:p * sort_chunk + below], band,
+                high[p * sort_chunk:
+                     p * sort_chunk + sort_chunk - below - len(band)]])
+            chunk.append(rng.permutation(piece))
+        chunk = np.concatenate(chunk)
+    elif name == "key_at_splitter_every_piece":
+        # a third of every piece is one key of the accumulator: it is
+        # sampled often enough to be a splitter, and is in every piece
+        n = MANY_PIECES * sort_chunk
+        C = 4 * n
+        chunk = _draw(rng, _keys(rng, n // 3, odd=True), n)
+        key = acc[len(acc) // 2]
+        chunk[rng.random(n) < 0.3] = key
+        chunk[np.arange(0, n, sort_chunk)] = key
+    elif name == "k16_keys":
+        # k = 16: every key below 2^32
+        n = MANY_PIECES * sort_chunk
+        C = 4 * n
+        keys = np.unique(rng.integers(0, 1 << 32, 2 * n)).astype(np.int64)
+        acc = np.sort(rng.permutation(keys)[:1500])
+        chunk = _draw(rng, rng.permutation(keys)[:n // 3], n)
+    elif name == "ragged_last_piece":
+        n = MANY_PIECES * sort_chunk + 333
+        C = 4 * n
+        chunk = _draw(rng, np.concatenate([_keys(rng, n // 3, odd=True),
+                                           acc]), n)
+    elif name == "runs_across_tiles":
+        # every accumulator key but the first is in the chunk, so the
+        # merged order is that key, then pairs: every merge tile of 4,096
+        # positions ends inside a pair, whose count carries to the next
+        acc = _keys(rng, 3 * MERGE_TILE)
+        n = MANY_PIECES * sort_chunk
+        C = 4 * n
+        rest = acc[1:]
+        chunk = np.concatenate([rest, rest[rng.integers(0, len(rest),
+                                                        n - len(rest))]])
+        chunk = rng.permutation(chunk)
+    elif name == "key_in_more_pieces_than_tile":
+        # 8,200 pieces of 512 (sort_chunk is ignored), the least key in
+        # each: its bucket cannot be staged at once
+        sort_chunk = 512
+        n = 8200 * sort_chunk
+        chunk = _draw(rng, _keys(rng, n // 2, odd=True), n)
+        chunk[np.arange(0, n, sort_chunk)] = 1
+        C = 2 * n
     else:
         raise ValueError(name)
     counts = rng.integers(1, 50, len(acc)).astype(np.int64)
     return acc, counts, chunk, C
+
+
+def sample_positions(n: int, piece: int) -> np.ndarray:
+    """Where chunk_runs samples n keys in pieces of `piece`: its bucket
+    count (buckets_for) and sample positions (sample_position) in
+    csrc/merge_runs.cu, repeated here to build an input that no sample
+    falls in."""
+    pieces = -(-n // piece)
+    buckets = 1
+    while buckets < 8192 and buckets * 4096 < n:
+        buckets *= 2
+    while buckets > 1 and buckets * pieces > 1 << 23:
+        buckets //= 2
+    total = 32 * buckets
+    t = np.arange(total, dtype=np.uint64)
+    with np.errstate(over="ignore"):
+        jitter = ((t * np.uint64(0x9E3779B97F4A7C15)) >> np.uint64(33))
+    t = t.astype(np.int64)
+    return t * n // total + jitter.astype(np.int64) % max(n // total, 1)
+
+
+def piece_size(name: str, sort_chunk: int = SORT_CHUNK) -> int:
+    """The piece size a case's chunk is sorted with."""
+    return 512 if name == "key_in_more_pieces_than_tile" else sort_chunk
 
 
 def sorted_chunk(chunk: np.ndarray, sort_chunk: int, device="cpu"):
@@ -126,3 +226,27 @@ def sample_shape(device, live: int = 26_000_000, slots: int = 1 << 26,
     window = torch.where(valid, window, torch.full_like(window, SENTINEL))
     acc_n = torch.tensor(live, dtype=torch.int64, device=device)
     return (keys, counts, acc_n), sort_runs.sort_chunks_runs(window)
+
+
+def scale_shape(device, capacity: int = 1 << 23):
+    """The merge's inputs at the shape of ``scale_count``'s chunks, made on
+    the device: chunk 1 of its synthesized stream (2^24 bases of a
+    2^21-base reference tiled 8 times, so nearly every window of a piece
+    is distinct: ~1.67e7 runs of ~2.1e6 keys) through the pack and the
+    chunk sort, and the accumulator after chunk 0 in `capacity` slots,
+    merged by the plain versions. Returns ((acc keys, acc counts, live
+    length), (keys, lengths))."""
+    from ..ops import merge
+    from ..ops.count import count_chunk_device, empty_accumulator
+    from .scale_count import CHUNK, K, ChunkSynthesizer, reference_chunk
+
+    synth = ChunkSynthesizer(torch.from_numpy(reference_chunk()).to(device))
+    valid = torch.ones(CHUNK, dtype=torch.bool, device=device)
+
+    def chunk(idx):
+        return count_chunk_device(synth(idx), valid, K, canonical=True)
+
+    acc = empty_accumulator(capacity, device)
+    merge.merge_accum_plain(*empty_accumulator(capacity, device),
+                            *merge.chunk_runs_plain(*chunk(0)), *acc)
+    return acc, chunk(1)

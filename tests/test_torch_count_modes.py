@@ -80,12 +80,41 @@ def _batches(case):
     return CASES[case](np.random.default_rng(31))
 
 
+def _load_km_native(tries: int = 5) -> None:
+    """Loads km_tpu's native library, which it builds in place on first
+    use with ``make -B``: workers that start together build and load it
+    at once, and one may find it half written and keep ``_load_failed``.
+    Under an exclusive lock, a failed load is cleared and tried again."""
+    import fcntl
+    import os
+    import tempfile
+    import time
+
+    from km_tpu import native as km_native
+
+    lock = os.path.join(tempfile.gettempdir(), "km_tpu_native_load.lock")
+    with open(lock, "w") as fh:
+        fcntl.flock(fh, fcntl.LOCK_EX)
+        try:
+            for attempt in range(tries):
+                if km_native.available():
+                    return
+                km_native._lib = None
+                km_native._load_failed = False
+                time.sleep(0.5 * (attempt + 1))
+            assert km_native.available(), (
+                "km_tpu's native library %s does not load"
+                % km_native._LIB_PATH)
+        finally:
+            fcntl.flock(fh, fcntl.LOCK_UN)
+
+
 def _mask_native(monkeypatch, native_on):
     if native_on:
-        from km_tpu import native as km_native
         from km_tpu_torch import native
 
-        assert native.available() and km_native.available()
+        _load_km_native()
+        assert native.available()
         return
     import km_tpu.native
 

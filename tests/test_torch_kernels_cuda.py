@@ -26,9 +26,11 @@ from km_tpu_torch.ops import (batch_walk, count, merge, pack, pathgraph,
 from km_tpu_torch.ops.count import count_batches_host, empty_accumulator
 from km_tpu_torch.ops.device_table import DeviceCountTable
 from km_tpu_torch.refdata import DATA_DIR, catalog_dir
-from km_tpu_torch.scripts.merge_cases import (CASES, SORT_CHUNK, SORT_CHUNKS,
-                                              accumulator, make_case,
-                                              sample_shape, sorted_chunk)
+from km_tpu_torch.scripts.merge_cases import (CARD_CASES, CASES, SORT_CHUNK,
+                                              SORT_CHUNKS, accumulator,
+                                              make_case, piece_size,
+                                              sample_shape, scale_shape,
+                                              sorted_chunk)
 
 KS = [2, 15, 16, 17, 21, 31]
 
@@ -201,13 +203,13 @@ def _merge_kernels_match_plain(acc, runs, C, sort_chunk, dev):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("case", CASES)
+@pytest.mark.parametrize("case", CASES + CARD_CASES)
 def test_merge_kernels_match_plain(cuda_device, case):
     acc, counts, chunk, C = make_case(case)
+    sc = piece_size(case)
     _merge_kernels_match_plain(
         accumulator(acc, counts, C, cuda_device),
-        sorted_chunk(chunk, SORT_CHUNK, cuda_device), C, SORT_CHUNK,
-        cuda_device)
+        sorted_chunk(chunk, sc, cuda_device), C, sc, cuda_device)
 
 
 @pytest.mark.cuda
@@ -248,5 +250,12 @@ def test_merge_accum_restores_padding_on_card(cuda_device):
 @pytest.mark.cuda
 def test_merge_kernels_at_the_sample_shape(cuda_device):
     acc, runs = sample_shape(cuda_device)
+    _merge_kernels_match_plain(acc, runs, acc[0].numel(), sort_runs.CHUNK,
+                               cuda_device)
+
+
+@pytest.mark.cuda
+def test_merge_kernels_at_the_scale_count_shape(cuda_device):
+    acc, runs = scale_shape(cuda_device)
     _merge_kernels_match_plain(acc, runs, acc[0].numel(), sort_runs.CHUNK,
                                cuda_device)

@@ -14,9 +14,10 @@ from km_tpu.ops import count as jcount
 from km_tpu_torch.device import SENTINEL, i64_to_split, split_to_i64
 from km_tpu_torch.ops import count as tcount
 from km_tpu_torch.ops import merge
-from km_tpu_torch.scripts.merge_cases import (CASES, LONG_RUN_KEY, SORT_CHUNK,
-                                              SORT_CHUNKS, accumulator,
-                                              make_case, sorted_chunk)
+from km_tpu_torch.scripts.merge_cases import (CARD_CASES, CASES, LONG_RUN_KEY,
+                                              SORT_CHUNK, SORT_CHUNKS,
+                                              accumulator, make_case,
+                                              piece_size, sorted_chunk)
 
 # (acc_hi, acc_lo, acc_cnt, rhi, rlo, rcnt, C, max_run)
 _jit_merge = jax.jit(jcount.merge_accum_device, static_argnums=(6, 7))
@@ -107,6 +108,21 @@ def test_chunk_runs_every_sort_chunk_ragged(sort_chunk):
     want_k, want_c = _numpy_runs(keys, lengths, sort_chunk)
     np.testing.assert_array_equal(got_k[:int(m)].numpy(), want_k)
     np.testing.assert_array_equal(got_c[:int(m)].numpy(), want_c)
+
+
+@pytest.mark.parametrize("case", CARD_CASES)
+def test_chunk_runs_plain_on_the_card_cases(case):
+    """The cases too large for the chain of numpy merges: the plain
+    version against numpy's unique with the window counts."""
+    _acc, _counts, chunk, _C = make_case(case)
+    sc = piece_size(case)
+    keys, lengths = sorted_chunk(chunk, sc)
+    got_k, got_c, m = merge.chunk_runs(keys, lengths, sc)
+    want_k, want_c = np.unique(chunk[chunk != SENTINEL], return_counts=True)
+    m = int(m)
+    np.testing.assert_array_equal(got_k[:m].numpy(), want_k)
+    np.testing.assert_array_equal(got_c[:m].numpy(), want_c)
+    assert int(got_c[0]) >= len(chunk) // sc  # the least key, every piece
 
 
 def test_long_run_exact_where_km_tpu_bound_undercounts():
