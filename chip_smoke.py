@@ -665,7 +665,7 @@ def phase_count(device, workdir: str, log2_bases: int, seed: int) -> dict:
                 distinct_before_L=stats["unique"],
                 distinct=stats["distinct"], slots=stats["capacity"],
                 retries=stats["retries"], chunks=stats["chunks"],
-                input_s=stats["input_s"],
+                span_s=stats["span_s"],
                 peak_device_bytes=peak)
 
 
@@ -947,8 +947,8 @@ def phase_count_chunked(device, workdir: str, fastq: str) -> dict:
                 kmers_per_s=windows / chunked["seconds"],
                 runs=chunked["runs"],
                 readback_bytes=chunked["readback_bytes"],
-                input_s=chunked["input_s"], merge_s=chunked["merge_s"],
-                stream_input_s=stream["input_s"],
+                span_s=chunked["span_s"], merge_s=chunked["merge_s"],
+                stream_span_s=stream["span_s"],
                 peak_rss_mb_before=rss_before, peak_rss_mb_after=rss_after,
                 launches=launches)
 

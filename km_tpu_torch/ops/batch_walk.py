@@ -57,7 +57,6 @@ freezing and power-of-two padding of seeds, members and queries.
 
 from __future__ import annotations
 
-import time
 import weakref
 
 import numpy as np
@@ -65,6 +64,7 @@ import torch
 
 from ..models.walk import NodeBudgetExceeded
 from ..utils import graphs as cuda_graphs
+from ..utils import profiling
 
 TGT_SENTINEL = 0x7FFFFFF
 DEFAULT_STACK_CAP = 64
@@ -165,6 +165,11 @@ class _Walk:
         """km_tpu's loop condition (its 2^22 round cap never binds)."""
         return ((self.alive.any() | (self.cursor < self.n_seeds))
                 & ~self.overflow & ~self.depth_ovf)
+
+    def _live_now(self) -> bool:
+        """``live()`` read on the host: the span ``walk.sync``."""
+        with profiling.phase("walk.sync"):
+            return bool(self.live())
 
     def round(self) -> None:
         live = self.live()
@@ -278,23 +283,25 @@ class _Walk:
         if self.n_seeds:
             if self.stack.device.type == "cuda":
                 cuda_graphs.warm_up(block)
-                if bool(self.live()):
+                if self._live_now():
                     graph = cuda_graphs.capture(self, self.STATE, block)
                     graph.replay()
-                    while bool(self.live()):
+                    while self._live_now():
                         graph.replay()
             else:
                 block()
-                while bool(self.live()):
+                while self._live_now():
                     block()
-        return bool(self.overflow), bool(self.depth_ovf)
+        with profiling.phase("walk.sync"):
+            return bool(self.overflow), bool(self.depth_ovf)
 
     def log(self):
         """The commit log on the host: (targets, depths, key rows)."""
-        n = int(self.log_count)
-        return (self.log_tgt[:n].cpu().numpy(),
-                self.log_depth[:n].cpu().numpy(),
-                self.log_keys[:n].cpu().numpy())
+        with profiling.phase("walk.sync"):
+            n = int(self.log_count)
+            return (self.log_tgt[:n].cpu().numpy(),
+                    self.log_depth[:n].cpu().numpy(),
+                    self.log_keys[:n].cpu().numpy())
 
 
 def device_discover(targets_mers: list[np.ndarray], table, ratio=0.05,
@@ -348,20 +355,16 @@ def device_discover(targets_mers: list[np.ndarray], table, ratio=0.05,
         raise NodeBudgetExceeded(max_node)
     active = np.flatnonzero(~np.isin(seed_tgt, sorted(failed)))
     WC_f = 0
-    stats = dict(iterations=0, rounds=0, retries=0, walklets=0, stack=S,
-                 filter_s=0.0, rounds_s=0.0, commits_s=0.0)
-    clock = time.perf_counter
+    stats = dict(iterations=0, rounds=0, retries=0, walklets=0, stack=S)
     for _iteration in range(64):  # fixpoint iterations (typically 2)
         stats["iterations"] += 1
-        t0 = clock()
         members = MemberSet(node_order, dev)
         act = torch.from_numpy(active).to(dev)
         keep = _seed_filter(table, members, seed_tgt_d[act], seed_keys_d[act],
                             ratio, count)
-        surv = active[keep.cpu().numpy()]
+        with profiling.phase("walk.sync"):
+            surv = active[keep.cpu().numpy()]
         surv_d = torch.from_numpy(surv).to(dev)
-        t1 = clock()
-        stats["filter_s"] += t1 - t0
 
         WC = min(walklet_cap, max(512, WC_f))
         while True:
@@ -371,7 +374,8 @@ def device_discover(targets_mers: list[np.ndarray], table, ratio=0.05,
                          max_break=max_break, WC=WC, S=S, copy_cap=copy_cap,
                          commit_cap=commit_cap, log_cap=log_cap)
             overflow, depth_ovf = walk.run()
-            stats["rounds"] += int(walk.rounds)
+            with profiling.phase("walk.sync"):
+                stats["rounds"] += int(walk.rounds)
             if not overflow and not depth_ovf:
                 break
             stats["retries"] += 1
@@ -385,8 +389,6 @@ def device_discover(targets_mers: list[np.ndarray], table, ratio=0.05,
         WC_f = WC  # an overflow-doubled pool carries to later iterations
         stats["walklets"] = max(stats["walklets"], WC)
         c_tgt, c_depth, c_keys = walk.log()
-        t2 = clock()
-        stats["rounds_s"] += t2 - t1
 
         changed = False
         for i in range(len(c_tgt)):
@@ -403,7 +405,6 @@ def device_discover(targets_mers: list[np.ndarray], table, ratio=0.05,
                 if on_budget == "raise":
                     raise NodeBudgetExceeded(max_node)
                 failed.add(t)
-        stats["commits_s"] += clock() - t2
         if not changed:
             break
         active = surv  # only prior survivors can still have unknown kids
@@ -424,7 +425,8 @@ def device_discover(targets_mers: list[np.ndarray], table, ratio=0.05,
     dev_counts = table.lookup(torch.from_numpy(all_keys).to(dev))
 
     def _materialize():
-        counts = dev_counts.cpu().numpy()
+        with profiling.phase("walk.sync"):
+            counts = dev_counts.cpu().numpy()
         results = []
         off = 0
         for t, order in enumerate(node_order):

@@ -48,6 +48,7 @@ import torch
 
 from .. import native
 from ..device import SENTINEL, check_k, i64_to_u64, resolve_device
+from ..utils import profiling
 from . import encode
 from .merge import chunk_runs, merge_accum
 from .pack import pack_canonical_windows
@@ -223,15 +224,21 @@ def merge_accum_device(acc, keys: torch.Tensor, lengths: torch.Tensor, out,
     return out
 
 
-def _timed(gen, spent: list):
-    """Yield from gen, adding the seconds spent inside it to spent[0]."""
+def _input(chunks):
+    """Yield from the chunk stream, each step the span ``count.input``
+    (the files read and parsed, batches joined, a chunk cut)."""
     while True:
-        t0 = time.perf_counter()
-        item = next(gen, None)
-        spent[0] += time.perf_counter() - t0
+        with profiling.phase("count.input"):
+            item = next(chunks, None)
         if item is None:
             return
         yield item
+
+
+def _upload(codes: np.ndarray, valid: np.ndarray, dev: torch.device):
+    """A chunk's codes and flags on ``dev``: the span ``count.upload``."""
+    with profiling.phase("count.upload"):
+        return torch.from_numpy(codes).to(dev), torch.from_numpy(valid).to(dev)
 
 
 def count_batches_device_stream(batches, k: int, canonical: bool = True,
@@ -249,41 +256,52 @@ def count_batches_device_stream(batches, k: int, canonical: bool = True,
     On overflow the work is discarded and CountCapacityOverflow raised:
     the input is a one-shot generator, so the caller re-reads it with a
     larger capacity (tools/count.py). ``stats``, a dict, receives the
-    chunk count, the capacity, the unique keys before the min_count cut,
-    their count total, and the host seconds spent reading the input."""
+    chunk count, the capacity, the unique keys before the min_count cut
+    and their count total; and under ``span_s`` (name -> seconds) it
+    adds the seconds of every span that closed inside the call, an
+    overflowed call's too: ``count.input``, ``count.upload``,
+    ``count.readback`` (the accumulator read back) and ``count.cut``
+    (the min_count cut and the conversions)."""
     check_k(k)
     if chunk <= k:
         raise ValueError("chunk must exceed k")
     dev = resolve_device(device)
     C = capacity
-    # the chunk merges from one accumulator into the other, then they swap
-    acc, spare = empty_accumulator(C, dev), empty_accumulator(C, dev)
-    max_unique = torch.zeros((), dtype=torch.int64, device=dev)
-    n_chunks = 0
-    input_s = [0.0]
-    chunks = chunk_stream(_coalesce_batches(batches, k, 4 * chunk), chunk, k)
-    for codes, valid in _timed(chunks, input_s):
-        rkeys, rlen = count_chunk_device(
-            torch.from_numpy(codes).to(dev), torch.from_numpy(valid).to(dev),
-            k, canonical=canonical, sort_chunk=sort_chunk)
-        acc, spare = merge_accum_device(acc, rkeys, rlen, spare,
-                                        sort_chunk=sort_chunk), acc
-        torch.maximum(max_unique, acc[2], out=max_unique)
-        n_chunks += 1
-        if n_chunks % OVERFLOW_CHECK_EVERY == 0 and int(max_unique) > C:
+    span_s = {} if stats is None else stats.setdefault("span_s", {})
+    with profiling.collect(span_s):
+        # the chunk merges from one accumulator into the other, then
+        # they swap
+        acc, spare = empty_accumulator(C, dev), empty_accumulator(C, dev)
+        max_unique = torch.zeros((), dtype=torch.int64, device=dev)
+        n_chunks = 0
+        chunks = chunk_stream(_coalesce_batches(batches, k, 4 * chunk),
+                              chunk, k)
+        for codes, valid in _input(chunks):
+            rkeys, rlen = count_chunk_device(
+                *_upload(codes, valid, dev), k, canonical=canonical,
+                sort_chunk=sort_chunk)
+            acc, spare = merge_accum_device(acc, rkeys, rlen, spare,
+                                            sort_chunk=sort_chunk), acc
+            torch.maximum(max_unique, acc[2], out=max_unique)
+            n_chunks += 1
+            if n_chunks % OVERFLOW_CHECK_EVERY == 0 and \
+                    int(max_unique) > C:
+                raise CountCapacityOverflow(C)
+        if int(max_unique) > C:
             raise CountCapacityOverflow(C)
-    if int(max_unique) > C:
-        raise CountCapacityOverflow(C)
 
-    acc_keys, acc_cnt, n_unique = acc
-    nu = int(n_unique)
-    keys = acc_keys[:nu].cpu().numpy()
-    cnt = acc_cnt[:nu].cpu().numpy()
+        acc_keys, acc_cnt, n_unique = acc
+        with profiling.phase("count.readback"):
+            nu = int(n_unique)
+            keys = acc_keys[:nu].cpu().numpy()
+            cnt = acc_cnt[:nu].cpu().numpy()
+        with profiling.phase("count.cut"):
+            total = int(cnt.sum())
+            keep = cnt >= min_count
+            out = i64_to_u64(keys[keep]), cnt[keep].astype(np.uint32)
     if stats is not None:
-        stats.update(chunks=n_chunks, capacity=C, unique=nu,
-                     total=int(cnt.sum()), input_s=input_s[0])
-    keep = cnt >= min_count
-    return i64_to_u64(keys[keep]), cnt[keep].astype(np.uint32)
+        stats.update(chunks=n_chunks, capacity=C, unique=nu, total=total)
+    return out
 
 
 def chunk_runs_device(codes: torch.Tensor, valid: torch.Tensor, k: int,
@@ -377,20 +395,22 @@ def count_batches_device_compact(batches, k: int, canonical: bool = True,
     every other counting path's.
 
     ``stats``, a dict, receives the chunks, the runs and bytes read back,
-    the host seconds spent reading the input (``input_s``) and merging
-    (``merge_s``), and the launches of the two kernels."""
+    the host seconds spent merging (``merge_s``), the launches of the
+    two kernels, and under ``span_s`` the seconds of the spans
+    ``count.input`` and ``count.upload``, as the stream's."""
     check_k(k)
     if chunk <= k:
         raise ValueError("chunk must exceed k")
     dev = resolve_device(device)
     launches0 = (pack_canonical_windows.launches, sort_chunks_runs.launches)
     readback = _RunReadback(dev, chunk)
-    input_s = [0.0]
     chunks = chunk_stream(_coalesce_batches(batches, k, 4 * chunk), chunk, k)
-    for codes, valid in _timed(chunks, input_s):
-        readback.push(*chunk_runs_device(
-            torch.from_numpy(codes).to(dev), torch.from_numpy(valid).to(dev),
-            k, canonical=canonical, sort_chunk=sort_chunk))
+    span_s = {} if stats is None else stats.setdefault("span_s", {})
+    with profiling.collect(span_s):
+        for codes, valid in _input(chunks):
+            readback.push(*chunk_runs_device(
+                *_upload(codes, valid, dev), k, canonical=canonical,
+                sort_chunk=sort_chunk))
     runs = readback.finish()
 
     t0 = time.perf_counter()
@@ -403,7 +423,7 @@ def count_batches_device_compact(batches, k: int, canonical: bool = True,
         stats.update(
             chunks=readback.n, runs=sum(len(r[0]) for r in runs),
             readback_bytes=readback.bytes, unique=len(keys),
-            total=int(cnt.sum()), input_s=input_s[0], merge_s=merge_s,
+            total=int(cnt.sum()), merge_s=merge_s,
             pack_launches=pack_canonical_windows.launches - launches0[0],
             sort_runs_launches=sort_chunks_runs.launches - launches0[1])
     keep = cnt >= min_count

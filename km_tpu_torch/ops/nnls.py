@@ -31,6 +31,7 @@ import torch
 
 from ..models.quant import build_contrib
 from ..utils import graphs as cuda_graphs
+from ..utils import profiling
 
 MAX_ITERS = 200_000  # safety bound; fixtures converge in < 2k iterations
 UNROLL = 8  # spec iterations per convergence test (one host sync)
@@ -88,8 +89,13 @@ class Refinement:
                 self._block()
             self.iters += UNROLL
 
+    def _converged(self) -> bool:
+        """Every problem frozen, read on the host: the span ``nnls.sync``."""
+        with profiling.phase("nnls.sync"):
+            return bool(self.done.all())
+
     def finish(self):
-        while self.iters < MAX_ITERS and not bool(self.done.all()):
+        while self.iters < MAX_ITERS and not self._converged():
             self.queue(1)
         coef = self.coef
         total = coef.sum(dim=1, keepdim=True)
@@ -139,7 +145,9 @@ def solve_batch(problems, device, defer: bool = False):
     ref.queue(QUEUE_AHEAD)
 
     def fetch():
-        both = torch.stack(ref.finish()).cpu().numpy()
+        both = torch.stack(ref.finish())
+        with profiling.phase("nnls.sync"):
+            both = both.cpu().numpy()
         return [(both[0, i, :n_p[i]], both[1, i, :n_p[i]])
                 for i in range(B)]
 

@@ -178,7 +178,8 @@ def batched_sweeps(graphs, device) -> list:
                                          device=device))
         pending.append((idxs, prev))
     for idxs, prev in pending:
-        trees = prev.cpu().numpy()
+        with profiling.phase("sweeps.sync"):
+            trees = prev.cpu().numpy()
         for s, gi in enumerate(idxs):
             g = graphs[gi]
             out[gi] = (trees[2 * s, :g.n].copy(),

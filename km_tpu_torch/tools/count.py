@@ -65,7 +65,8 @@ def count_read_files(paths, k: int, canonical: bool = True,
     four times the capacity (counting is stateless, so the retry is
     exact), starting from 2^22 slots as km_tpu does. ``stats``, a dict,
     receives the counter's numbers and, for the stream, the number of
-    retries.
+    retries; every attempt adds its spans to ``stats["span_s"]``, and an
+    attempt that overflowed adds its whole time as ``count.overflowed``.
 
     With a process ``group``, every rank of it calls this alike and the
     count is sharded over the group on each rank's own device; the
@@ -91,12 +92,18 @@ def count_read_files(paths, k: int, canonical: bool = True,
     capacity = START_CAPACITY
     retries = 0
     while True:
+        t0 = time.perf_counter_ns()
         try:
             out = count_batches_device_stream(
                 batches, k, canonical=canonical, min_count=min_count,
                 chunk=CHUNK[dev.type], capacity=capacity, device=dev,
                 stats=stats)
         except CountCapacityOverflow:
+            if stats is not None:
+                span_s = stats["span_s"]
+                spent = (time.perf_counter_ns() - t0) / 1e9
+                span_s["count.overflowed"] = (
+                    span_s.get("count.overflowed", 0.0) + spent)
             capacity *= 4
             retries += 1
             sys.stderr.write("count table capacity exceeded; retrying "

@@ -17,16 +17,19 @@ from __future__ import annotations
 
 import torch
 
+from . import profiling
+
 
 def warm_up(block) -> None:
     """Run ``block()`` once on a side stream, ordered with the current
-    stream on both sides."""
-    main = torch.cuda.current_stream()
-    side = torch.cuda.Stream()
-    side.wait_stream(main)
-    with torch.cuda.stream(side):
-        block()
-    main.wait_stream(side)
+    stream on both sides: the span ``graph.warm_up``."""
+    with profiling.phase("graph.warm_up"):
+        main = torch.cuda.current_stream()
+        side = torch.cuda.Stream()
+        side.wait_stream(main)
+        with torch.cuda.stream(side):
+            block()
+        main.wait_stream(side)
 
 
 def capture(holder, names, block) -> "torch.cuda.CUDAGraph":
@@ -34,24 +37,25 @@ def capture(holder, names, block) -> "torch.cuda.CUDAGraph":
     ``holder`` (and may update others in place), into a graph that
     writes its results back into the tensors it started from. Returns
     the graph; ``holder`` keeps those tensors. The block does not run
-    until the graph is replayed."""
-    static = {name: getattr(holder, name) for name in names}
-    graph = torch.cuda.CUDAGraph()
-    # capture_begin/end on a side stream, as torch.cuda.graph does, but
-    # without its gc.collect() and empty_cache() (milliseconds each,
-    # once per capture, with the catalog's host objects alive)
-    main = torch.cuda.current_stream()
-    side = torch.cuda.Stream()
-    side.wait_stream(main)
-    with torch.cuda.stream(side):
-        graph.capture_begin()
-        try:
-            block()
-            for name in names:
-                static[name].copy_(getattr(holder, name))
-        finally:
-            graph.capture_end()
-    main.wait_stream(side)
-    for name, tensor in static.items():
-        setattr(holder, name, tensor)
-    return graph
+    until the graph is replayed. The span ``graph.capture``."""
+    with profiling.phase("graph.capture"):
+        static = {name: getattr(holder, name) for name in names}
+        graph = torch.cuda.CUDAGraph()
+        # capture_begin/end on a side stream, as torch.cuda.graph does,
+        # but without its gc.collect() and empty_cache() (milliseconds
+        # each, once per capture, with the catalog's host objects alive)
+        main = torch.cuda.current_stream()
+        side = torch.cuda.Stream()
+        side.wait_stream(main)
+        with torch.cuda.stream(side):
+            graph.capture_begin()
+            try:
+                block()
+                for name in names:
+                    static[name].copy_(getattr(holder, name))
+            finally:
+                graph.capture_end()
+        main.wait_stream(side)
+        for name, tensor in static.items():
+            setattr(holder, name, tensor)
+        return graph

@@ -167,6 +167,46 @@ def test_sweep_ties_on_card(cuda_device):
 
 
 @pytest.mark.cuda
+def test_each_capture_is_one_warm_up_and_one_capture_span(cuda_device,
+                                                          monkeypatch):
+    """A CUDA graph of the sweeps and of NNLS is built as one span
+    ``graph.warm_up`` and one ``graph.capture``; replays open none."""
+    from km_tpu_torch.ops import nnls
+    from km_tpu_torch.utils import profiling
+
+    names = []
+    phase = profiling.phase
+
+    def recorded(name):
+        names.append(name)
+        return phase(name)
+
+    monkeypatch.setattr(profiling, "phase", recorded)
+    B, n = 2, 4 * pathgraph.SWEEP_BLOCK
+    ids = torch.full((B, n, 4), -1, dtype=torch.int64, device=cuda_device)
+    ids[:, :-1, 0] = torch.arange(1, n, device=cuda_device)
+    w = torch.ones((B, n, 4), dtype=torch.float32, device=cuda_device)
+    prev = pathgraph.sweep_kernel(ids, w, torch.zeros(
+        B, dtype=torch.int64, device=cuda_device))
+    assert prev[0, 1:].tolist() == list(range(n - 1))
+    builds = [x for x in names if x.startswith("graph.")]
+    assert builds == ["graph.warm_up", "graph.capture"]
+
+    names.clear()
+    contrib = torch.rand((B, 6, 2), dtype=torch.float64, device=cuda_device)
+    ref = nnls.Refinement(contrib, contrib.sum(2) * 3,
+                          torch.zeros((B, 2), dtype=torch.float64,
+                                      device=cuda_device),
+                          torch.full((B,), 6.0, dtype=torch.float64,
+                                     device=cuda_device))
+    ref.queue(4)
+    ref.finish()
+    builds = [x for x in names if x.startswith("graph.")]
+    assert builds == ["graph.warm_up", "graph.capture"]
+    assert "nnls.sync" in names
+
+
+@pytest.mark.cuda
 def test_stream_on_card_matches_host(cuda_device):
     rng = np.random.default_rng(11)
     ref = rng.integers(0, 4, 40000, dtype=np.uint8)
