@@ -16,8 +16,10 @@ merge) are held against theirs at the sample's shape (2.6e7 keys in 2^26
 slots, one chunk of 2^24 windows), at scale_count's (a chunk whose
 windows are nearly all distinct) and on the cases of
 km_tpu_torch/scripts/merge_cases.py, and timed beside the torch merge
-they replace (the chunk's runs also beside torch.unique).
-Then drives the user's workflow
+they replace (the chunk's runs also beside torch.unique). The
+``min_count`` cut (C1) is held against its plain version on its edge
+cases and on an accumulator of 2^26 slots, 41% of the live records
+kept, and timed against its bytes bound. Then drives the user's workflow
 through the port's CLI at the size of one RNA-seq sample: ``count`` a
 synthetic FASTQ of 2^30 bases on the card, ``find_mutation --batch``
 with the table resident on the card (the walk, the Dijkstra sweeps and
@@ -538,6 +540,61 @@ def kernel_merge_accum(device, acc, sorted_runs, scale_acc,
                                                   "scale_count's shape"))
 
 
+def check_cut(acc, min_count: int, what: str):
+    """C1 against its plain version on the same accumulator, each into
+    out buffers of the same dead contents; raises unless the results and
+    the whole buffers are equal bit for bit. Returns the kernel's
+    (result, out keys, out counts)."""
+    import torch
+
+    from km_tpu_torch.ops import merge
+
+    slots = acc[0].numel()
+    dead = (torch.full((slots,), 0x5A5A5A5A5A5A5A5A, dtype=torch.int64,
+                       device=acc[0].device),
+            torch.full((slots,), 0x5A5A5A5A, dtype=torch.int32,
+                       device=acc[0].device))
+    outs = []
+    for fn in (merge.cut, merge.cut_plain):
+        out = tuple(t.clone() for t in dead)
+        outs.append((fn(*acc, min_count, *out), *out))
+    if not all(torch.equal(a, b) for a, b in zip(*outs)):
+        raise AssertionError("cut kernel != plain (%s): %s vs %s"
+                             % (what, outs[0][0].tolist(),
+                                outs[1][0].tolist()))
+    return outs[0]
+
+
+def kernel_cut(device, slots: int = 1 << 26, live: int = 52_690_000,
+               min_count: int = 2) -> dict:
+    """C1 on an accumulator of 2^26 slots, 78.5% of them live as in
+    count.resident's 2^29, 41% of the live kept at min_count 2: held
+    bit-equal to its plain version (and on the cut's edge cases), timed
+    against its bytes bound (16 B a live record in, 12 B a kept record
+    out) and beside the plain version. No single PyTorch call cuts into
+    given buffers (a mask, gathers and conversions that allocate)."""
+    from km_tpu_torch.ops import merge
+    from km_tpu_torch.scripts.merge_cases import (CUT_CASES, cut_accumulator,
+                                                  cut_case)
+
+    for name in CUT_CASES:
+        check_cut(*cut_case(name, device), name)
+    acc = cut_accumulator(live, slots, device, seed=26)
+    result, out_k, out_c = check_cut(acc, min_count, "2^26 slots")
+    kept, total, n = result.tolist()
+    ms = cuda_time_ms(lambda: merge.cut(*acc, min_count, out_k, out_c))
+    plain_ms = cuda_time_ms(
+        lambda: merge.cut_plain(*acc, min_count, out_k, out_c), iters=3)
+    bound = bound_ms(16 * n + 12 * kept)
+    return dict(slots=slots, live=n, kept=kept, kept_share=kept / n,
+                total=total, edge_cases=len(CUT_CASES), max_abs_err=0.0,
+                ms=ms, plain_ms=plain_ms, bound_ms=bound, bound_by="bytes",
+                share_of_bound=bound / ms, library_ms=None,
+                launches=merge.cut.launches,
+                kernels_ms=device_times(
+                    lambda: merge.cut(*acc, min_count, out_k, out_c)))
+
+
 # ---------------------------------------------------------------------------
 # the synthetic sample
 
@@ -854,11 +911,11 @@ def phase_catalog_device(device, workdir: str, counted_table: str) -> dict:
 
 # the kernels each path runs; every other kernel must not launch there
 PATH_KERNELS = {
-    "main": ("pack", "sort_runs", "chunk_runs", "merge_accum"),
+    "main": ("pack", "sort_runs", "chunk_runs", "merge_accum", "cut"),
     "chunked": ("pack", "sort_runs", "chunk_runs"),
     "scale_count": ("pack", "sort_runs", "chunk_runs", "merge_accum"),
     "sharded": ("pack", "sort_runs"),
-    "cohort": ("pack", "sort_runs", "chunk_runs", "merge_accum"),
+    "cohort": ("pack", "sort_runs", "chunk_runs", "merge_accum", "cut"),
 }
 
 
@@ -868,7 +925,8 @@ def _counted():
     return {"pack": pack.pack_canonical_windows,
             "sort_runs": sort_runs.sort_chunks_runs,
             "chunk_runs": merge.chunk_runs,
-            "merge_accum": merge.merge_accum}
+            "merge_accum": merge.merge_accum,
+            "cut": merge.cut}
 
 
 def kernel_launches() -> dict:
@@ -1003,7 +1061,8 @@ def phase_scale_count(device) -> dict:
     record, keys, _counts = scale_count(SCALE_CHUNKS, SCALE_CAPACITY,
                                         device=device)
     launches = check_launches(kernel_launches(), "scale_count")
-    if set(launches.values()) != {SCALE_CHUNKS}:
+    if {launches[name] for name in PATH_KERNELS["scale_count"]} != {
+            SCALE_CHUNKS}:
         raise AssertionError("scale_count: launches %s for %d chunks"
                              % (launches, SCALE_CHUNKS))
     if not (np.diff(keys.astype(np.int64)) > 0).all():
@@ -1216,13 +1275,13 @@ def phase_cohort(device, workdir: str, fastq: str, counted_table: str
                       r"table ([\d.]+), catalog ([\d.]+), reports ([\d.]+)\)",
                       proc.stderr)}
     m = re.search(r"done in ([\d.]+)s .*kernel launches: pack (\d+), "
-                  r"sort_runs (\d+), chunk_runs (\d+), merge_accum (\d+)",
-                  proc.stderr)
+                  r"sort_runs (\d+), chunk_runs (\d+), merge_accum (\d+), "
+                  r"cut (\d+)", proc.stderr)
     if m is None or len(per_sample) != 3:
         raise AssertionError("cohort's summary lines are missing:\n%s"
                              % proc.stderr[-4000:])
     launches = check_launches(
-        dict(zip(("pack", "sort_runs", "chunk_runs", "merge_accum"),
+        dict(zip(("pack", "sort_runs", "chunk_runs", "merge_accum", "cut"),
                  map(int, m.groups()[1:]))), "cohort")
     command_s = float(m[1])
 
@@ -1351,6 +1410,9 @@ def main(argv=None) -> int:
     say("kernel_merge_accum", **kernels["merge_accum"])
     del acc, sorted_runs, scale_acc, scale_runs
     torch.cuda.empty_cache()
+    kernels["cut"] = kernel_cut(device)
+    say("kernel_cut", **kernels["cut"])
+    torch.cuda.empty_cache()
 
     if opts.kernels_only:
         return 0
@@ -1398,10 +1460,12 @@ def main(argv=None) -> int:
                 "sort_chunks": "km_tpu/ops/pallas_sort.py:68",
                 # XLA programs, no Pallas
                 "chunk_runs": "km_tpu/ops/count.py:195",
-                "merge_accum": "km_tpu/ops/count.py:369"}
+                "merge_accum": "km_tpu/ops/count.py:369",
+                # a host numpy cut, no device code
+                "cut": "km_tpu/ops/count.py:503"}
     sources = {"pack": "pack", "sort_runs": "sort_runs",
                "sort_chunks": "sort_runs", "chunk_runs": "merge_runs",
-               "merge_accum": "merge_runs"}
+               "merge_accum": "merge_runs", "cut": "merge_runs"}
     paths = {"main": launches, "chunked": chunked["launches"],
              "scale_count": scale["launches"], "sharded": sharded["launches"],
              "cohort": cohort["launches"]}

@@ -159,6 +159,11 @@ def lib():
         handle.km_merge_accum.argtypes = [vp, vp, vp, i64, vp, vp, vp, i64,
                                           vp, vp, vp, vp, i64, vp]
         handle.km_merge_accum.restype = i32
+        handle.km_cut_scratch.argtypes = [i64]
+        handle.km_cut_scratch.restype = i64
+        handle.km_cut.argtypes = [vp, vp, vp, i64, i64, vp, vp, vp, vp, i64,
+                                  vp]
+        handle.km_cut.restype = i32
         _lib = handle
     return _lib
 

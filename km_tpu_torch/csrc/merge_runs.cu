@@ -12,15 +12,24 @@
 //   accumulator (ascending distinct keys, counts > 0): the accumulator
 //   half of merge_accum_device, which concatenated, re-sorted and
 //   compacted the whole padded accumulator every chunk.
+// - km_cut (C1) cuts the final accumulator at min_count on the card: the
+//   kept keys as uint64 words and their counts as uint32 into the spare
+//   accumulator's buffers, and (kept, the counts' sum, the live length)
+//   into three int64. It replaces no device code of km_tpu: there the
+//   stream read the whole accumulator back and cut it on the host (the
+//   end of count_batches_device_stream, :503), as the port did. On the
+//   card only the kept records cross to the host, and no buffer the size
+//   of the output is allocated.
 //
 // What bounds them on an H100: device memory. M2's least traffic is its
 // live inputs read once and its live output written once, 16 bytes a
 // record; M1's is the chunk read once (12 bytes a key) and its runs
-// written once (16 bytes). Padding is never read, no count is summed with
-// an atomic, and results are deterministic and equal to the plain
-// versions bit for bit. Lengths are read from device memory, so nothing
-// is read back to size a launch: grids are sized for the most a merge
-// can hold, and blocks past the live total exit.
+// written once (16 bytes); C1's the live records read once (16 bytes)
+// and the kept written once (12 bytes). Padding is never read, no count
+// is summed with an atomic, and results are deterministic and equal to
+// the plain versions bit for bit. Lengths are read from device memory,
+// so nothing is read back to size a launch: grids are sized for the most
+// a merge can hold, and blocks past the live total exit.
 //
 // M1 is a sample sort over the pieces, so each run crosses device memory
 // about twice (a pairwise merge tree over 1,024 pieces moved it ten
@@ -70,10 +79,14 @@
 // writes the true number of runs and restores SENTINEL/0 over the output
 // slots that were live before and are not now.
 //
-// Neither reaches its bytes bound on an H100 (PERF.md has the times): a
-// bucket's sort moves its records through shared memory once a merge
-// level and takes 150 KB, so one bucket runs per SM; M2's tiles wait on
-// their loads and on the look-back, two to an SM.
+// C1 is one pass in ticket order, a tile of 4,096 records a block, its
+// output rank from the same decoupled look-back as M2's tiles, carrying
+// (records kept, counts summed).
+//
+// Neither M1 nor M2 reaches its bytes bound on an H100 (PERF.md has the
+// times): a bucket's sort moves its records through shared memory once a
+// merge level and takes 150 KB, so one bucket runs per SM; M2's tiles
+// wait on their loads and on the look-back, two to an SM.
 
 #include <cstdint>
 
@@ -119,14 +132,27 @@ i64 cdiv(i64 a, i64 b) { return (a + b - 1) / b; }
 // scans and searches
 
 // (runs begun, count since the last run start) of a stretch of records;
-// combine(L, R) is that of L followed by R.
+// combine(L, R) is that of L followed by R. A look-back carries its two
+// words as v[0], v[1].
 struct Runs {
   i64 starts;
   i64 tail;
+  __device__ i64 operator[](int i) const { return i ? tail : starts; }
 };
 
 __device__ __forceinline__ Runs combine(Runs l, Runs r) {
   return Runs{l.starts + r.starts, r.starts > 0 ? r.tail : l.tail + r.tail};
+}
+
+// (records kept, counts summed) of a stretch of records: C1's carry.
+struct Kept {
+  i64 kept;
+  i64 total;
+  __device__ i64 operator[](int i) const { return i ? total : kept; }
+};
+
+__device__ __forceinline__ Kept combine(Kept l, Kept r) {
+  return Kept{l.kept + r.kept, l.total + r.total};
 }
 
 // Exclusive scan of one Runs per thread over a block of kBlock threads;
@@ -909,16 +935,17 @@ ChunkScratch chunk_scratch(char* base, i64 n, int piece) {
 constexpr int kMergeSlots = padded(kMergeTile) + 1;
 constexpr size_t kMergeSmem = 2 * kMergeSlots * sizeof(i64);
 
-// The tile's exclusive (runs begun, count since the last run start): the
+// The tile's exclusive carry (a Runs for M2, a Kept for C1): the
 // aggregates published by the tiles before it, combined back to the
 // nearest that published its inclusive value. Values are written before
 // their flag (1: aggregate, 2: inclusive) behind a fence, and read after
 // it. One warp reads 32 tiles a round (lane 0 the nearest) and combines
 // them in order; all lanes return it.
-__device__ Runs look_back_tiles(const int* flags, const i64* agg,
-                                const i64* incl, i64 tile) {
+template <typename V>
+__device__ V look_back_tiles(const int* flags, const i64* agg,
+                             const i64* incl, i64 tile) {
   const int lane = threadIdx.x & 31;
-  Runs acc{0, 0};
+  V acc{0, 0};
   for (i64 end = tile; end > 0; end -= 32) {
     const i64 j = end - 1 - lane;
     int f = 0;
@@ -930,31 +957,31 @@ __device__ Runs look_back_tiles(const int* flags, const i64* agg,
     __threadfence();
     const unsigned done = __ballot_sync(kFull, f == 2);
     const int stop = done ? __ffs(done) - 1 : 31;
-    Runs x{0, 0};
+    V x{0, 0};
     if (j >= 0 && lane <= stop) {
       const volatile i64* src = (f == 2 ? incl : agg) + 2 * j;
-      x = Runs{src[0], src[1]};
+      x = V{src[0], src[1]};
     }
     // lanes further back are older: lane i takes lanes i .. i + 2d - 1
 #pragma unroll
     for (int d = 1; d < 32; d <<= 1) {
-      const Runs o{__shfl_down_sync(kFull, x.starts, d),
-                   __shfl_down_sync(kFull, x.tail, d)};
+      const V o{__shfl_down_sync(kFull, x[0], d),
+                __shfl_down_sync(kFull, x[1], d)};
       if (lane + d < 32) x = combine(o, x);
     }
-    const Runs window{__shfl_sync(kFull, x.starts, 0),
-                      __shfl_sync(kFull, x.tail, 0)};
+    const V window{__shfl_sync(kFull, x[0], 0), __shfl_sync(kFull, x[1], 0)};
     acc = combine(window, acc);
     if (done) break;
   }
   return acc;
 }
 
+template <typename V>
 __device__ __forceinline__ void publish_tile(int* flags, i64* vals, i64 tile,
-                                             Runs v, int flag) {
+                                             V v, int flag) {
   volatile i64* dst = vals + 2 * tile;
-  dst[0] = v.starts;
-  dst[1] = v.tail;
+  dst[0] = v[0];
+  dst[1] = v[1];
   __threadfence();
   *reinterpret_cast<volatile int*>(flags + tile) = flag;
 }
@@ -1080,7 +1107,7 @@ merge_accum_kernel(const i64* __restrict__ ak, const i64* __restrict__ ac,
       if (threadIdx.x == 0) publish_tile(flags, incl, tile, total, 2);
     } else {
       if (threadIdx.x == 0) publish_tile(flags, agg, tile, total, 1);
-      ex = look_back_tiles(flags, agg, incl, tile);
+      ex = look_back_tiles<Runs>(flags, agg, incl, tile);
       if (threadIdx.x == 0) {
         publish_tile(flags, incl, tile, combine(ex, total), 2);
       }
@@ -1162,6 +1189,109 @@ MergeScratch merge_scratch(char* base, i64 cap, i64 max_runs) {
   at += align_up((s.tiles + 1) * 8);
   s.bytes = at;
   return s;
+}
+
+// ---------------------------------------------------------------------------
+// C1
+
+constexpr int kCutThreads = 256;
+constexpr int kCutItems = 16;
+constexpr int kCutTile = kCutThreads * kCutItems;
+// C1 takes M2's scratch for a merge of the accumulator with no runs: its
+// tiles, of the same size (the cuts go unread)
+static_assert(kCutTile == kMergeTile, "C1 tiles as M2 does");
+
+// The live records (min(*n_p, cap) of keys/counts) in tiles of kCutTile,
+// taken in ticket order; blocks past the last tile (one tile when none is
+// live) exit. Warp w of a tile holds its records w * 512 .. w * 512 + 511,
+// 32 consecutive a round, so a round's kept records go out contiguous in
+// key order: at the tile's rank from the look-back, plus the warps before
+// it, the rounds before and the lanes before. Kept keys go out as their
+// uint64 words (SENTINEL as all ones), counts as their low 32 bits. The
+// tile that holds the last record writes (kept, the sum of every live
+// count, *n_p) to result.
+__global__ void __launch_bounds__(kCutThreads)
+cut_kernel(const i64* __restrict__ keys, const i64* __restrict__ counts,
+           const i64* __restrict__ n_p, i64 cap, i64 min_count,
+           u64* __restrict__ out_k, unsigned* __restrict__ out_c,
+           i64* __restrict__ result, int* flags, i64* agg, i64* incl,
+           unsigned* ticket) {
+  constexpr int kWarps = kCutThreads / 32;
+  __shared__ i64 s_warp[2 * kWarps];
+  __shared__ i64 s_tile;
+  __shared__ Kept s_ex;
+  if (threadIdx.x == 0) s_tile = atomicAdd(ticket, 1u);
+  __syncthreads();
+  const i64 tile = s_tile;
+  const i64 n_raw = *n_p;
+  const i64 n = n_raw < cap ? n_raw : cap;
+  const i64 tiles = n > 0 ? (n + kCutTile - 1) / kCutTile : 1;
+  if (tile >= tiles) return;
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const i64 first = tile * kCutTile + warp * (32 * kCutItems) + lane;
+  // every load in flight before any is used
+  i64 k[kCutItems], c[kCutItems];
+#pragma unroll
+  for (int j = 0; j < kCutItems; ++j) {
+    const i64 i = first + 32 * j;
+    k[j] = i < n ? keys[i] : kSentinel;
+    c[j] = i < n ? counts[i] : 0;
+  }
+  unsigned keep[kCutItems];
+  i64 kept = 0;
+  i64 sum = 0;
+#pragma unroll
+  for (int j = 0; j < kCutItems; ++j) {
+    keep[j] = __ballot_sync(kFull, first + 32 * j < n && c[j] >= min_count);
+    kept += __popc(keep[j]);
+    sum += c[j];
+  }
+#pragma unroll
+  for (int d = 16; d > 0; d >>= 1) sum += __shfl_down_sync(kFull, sum, d);
+  if (lane == 0) {
+    s_warp[warp] = kept;
+    s_warp[kWarps + warp] = sum;
+  }
+  __syncthreads();
+  i64 before = 0;
+  Kept total{0, 0};
+  for (int w = 0; w < kWarps; ++w) {
+    if (w < warp) before += s_warp[w];
+    total = combine(total, Kept{s_warp[w], s_warp[kWarps + w]});
+  }
+  if (threadIdx.x < 32) {
+    Kept ex{0, 0};
+    if (tile == 0) {
+      if (threadIdx.x == 0) publish_tile(flags, incl, tile, total, 2);
+    } else {
+      if (threadIdx.x == 0) publish_tile(flags, agg, tile, total, 1);
+      ex = look_back_tiles<Kept>(flags, agg, incl, tile);
+      if (threadIdx.x == 0) {
+        publish_tile(flags, incl, tile, combine(ex, total), 2);
+      }
+    }
+    if (threadIdx.x == 0) s_ex = ex;
+  }
+  __syncthreads();
+  const Kept ex = s_ex;
+  i64 at = ex.kept + before;
+  const unsigned lanes_below = (1u << lane) - 1;
+#pragma unroll
+  for (int j = 0; j < kCutItems; ++j) {
+    if ((keep[j] >> lane) & 1u) {
+      const i64 o = at + __popc(keep[j] & lanes_below);
+      out_k[o] = k[j] == kSentinel ? ~0ull : static_cast<u64>(k[j]);
+      out_c[o] = static_cast<unsigned>(c[j]);
+    }
+    at += __popc(keep[j]);
+  }
+  if (tile == tiles - 1 && threadIdx.x == 0) {
+    const Kept all = combine(ex, total);
+    result[0] = all.kept;
+    result[1] = all.total;
+    result[2] = n_raw;
+  }
 }
 
 int set_smem(const void* kernel, size_t bytes) {
@@ -1278,5 +1408,36 @@ extern "C" int km_merge_accum(const void* acc_keys, const void* acc_cnt,
       static_cast<i64*>(out_keys), static_cast<i64*>(out_cnt),
       static_cast<i64*>(out_n), cap, s.cuts, s.flags, s.agg, s.incl,
       s.ticket);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The bytes of scratch km_cut needs.
+extern "C" int64_t km_cut_scratch(int64_t cap) {
+  if (cap <= 0) return 0;
+  return merge_scratch(nullptr, cap, 0).bytes;
+}
+
+// C1. The accumulator (keys/counts, `cap` slots, min(*n, cap) live) cut at
+// min_count: the kept keys as uint64 words into out_keys, their counts'
+// low 32 bits into out_cnt (each of `cap` slots at least; the first kept
+// are written, in key order), and (kept, the sum of every live count, *n)
+// into result, three int64. out_keys/out_cnt must not overlap the inputs.
+// scratch: km_cut_scratch(cap) bytes, 256-byte aligned.
+extern "C" int km_cut(const void* keys, const void* counts, const void* n,
+                      int64_t cap, int64_t min_count, void* out_keys,
+                      void* out_cnt, void* result, void* scratch,
+                      int64_t scratch_bytes, void* stream) {
+  if (cap <= 0) return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const MergeScratch s = merge_scratch(static_cast<char*>(scratch), cap, 0);
+  if (scratch_bytes < s.bytes) return static_cast<int>(cudaErrorInvalidValue);
+  const int err =
+      static_cast<int>(cudaMemsetAsync(s.flags, 0, s.zeroed, st));
+  if (err) return err;
+  cut_kernel<<<static_cast<unsigned>(s.tiles), kCutThreads, 0, st>>>(
+      static_cast<const i64*>(keys), static_cast<const i64*>(counts),
+      static_cast<const i64*>(n), cap, min_count, static_cast<u64*>(out_keys),
+      static_cast<unsigned*>(out_cnt), static_cast<i64*>(result), s.flags,
+      s.agg, s.incl, s.ticket);
   return static_cast<int>(cudaGetLastError());
 }

@@ -14,9 +14,13 @@ Per fixed-size chunk of read bases, uploaded as codes and flags:
   chunk_runs (CUDA kernel)              -> the chunk's runs in key order
   merge_accum (CUDA kernel)             -> merged into a device-resident
                                            accumulator of C unique keys
+and at the end of the stream:
+  cut (CUDA kernel)                     -> the min_count cut, into the
+                                           spare accumulator
 The stream keeps two accumulators of C slots and merges each chunk from
 one into the other, so the accumulator is never sorted again and no
-length is read back until the end; the result is read back once.
+length is read back until the end; then only the kept records are read
+back, once.
 
 Two defects of km_tpu's stream are not reproduced:
 - run totals are exact (differences of an int64 prefix sum, no
@@ -47,10 +51,10 @@ import numpy as np
 import torch
 
 from .. import native
-from ..device import SENTINEL, check_k, i64_to_u64, resolve_device
+from ..device import SENTINEL, check_k, resolve_device
 from ..utils import profiling
 from . import encode
-from .merge import chunk_runs, merge_accum
+from .merge import chunk_runs, cut, merge_accum
 from .pack import pack_canonical_windows
 from .sort_runs import CHUNK, sort_chunks_runs
 
@@ -241,6 +245,27 @@ def _upload(codes: np.ndarray, valid: np.ndarray, dev: torch.device):
         return torch.from_numpy(codes).to(dev), torch.from_numpy(valid).to(dev)
 
 
+def cut_readback(acc, spare, min_count: int):
+    """The end of a stream count: the accumulator ``acc`` cut at
+    ``min_count`` on its device into ``spare``, whose contents are
+    dead by then (span ``count.cut``: the launch and the one wait on
+    it, a read of three numbers), then the kept records read back (span
+    ``count.readback``). Returns (keys uint64, counts uint32, kept,
+    total, unique): total sums every live count, before the cut; unique
+    is the accumulator's live length. ``spare`` no longer holds an
+    accumulator afterwards."""
+    keys, counts, n = acc
+    out_keys, out_cnt = spare[0], spare[1].view(torch.int32)
+    with profiling.phase("count.cut"):
+        kept, total, unique = cut(keys, counts, n, min_count, out_keys,
+                                  out_cnt).tolist()
+    with profiling.phase("count.readback"):
+        host_keys = out_keys[:kept].to("cpu", copy=True).numpy()
+        host_cnt = out_cnt[:kept].to("cpu", copy=True).numpy()
+    return (host_keys.view(np.uint64), host_cnt.view(np.uint32), kept,
+            total, unique)
+
+
 def count_batches_device_stream(batches, k: int, canonical: bool = True,
                                 min_count: int = 1, chunk: int = 1 << 24,
                                 capacity: int = 1 << 22, device="cuda",
@@ -253,15 +278,19 @@ def count_batches_device_stream(batches, k: int, canonical: bool = True,
     bases between batches, so no window spans two) before they are cut
     into chunks that overlap by k-1 bases, so chunks are full.
 
+    The min_count cut runs on the device into the spare accumulator
+    (``cut_readback``), so only the kept records are read back.
+
     On overflow the work is discarded and CountCapacityOverflow raised:
     the input is a one-shot generator, so the caller re-reads it with a
     larger capacity (tools/count.py). ``stats``, a dict, receives the
-    chunk count, the capacity, the unique keys before the min_count cut
-    and their count total; and under ``span_s`` (name -> seconds) it
-    adds the seconds of every span that closed inside the call, an
-    overflowed call's too: ``count.input``, ``count.upload``,
-    ``count.readback`` (the accumulator read back) and ``count.cut``
-    (the min_count cut and the conversions)."""
+    chunk count, the capacity, the unique keys before the min_count cut,
+    their count total, and the records kept by the cut and read back
+    (``kept``); and under ``span_s`` (name -> seconds) it adds the
+    seconds of every span that closed inside the call, an overflowed
+    call's too: ``count.input``, ``count.upload``, ``count.cut`` (the
+    cut on the device and the wait on it) and ``count.readback`` (the
+    kept records read back)."""
     check_k(k)
     if chunk <= k:
         raise ValueError("chunk must exceed k")
@@ -290,18 +319,11 @@ def count_batches_device_stream(batches, k: int, canonical: bool = True,
         if int(max_unique) > C:
             raise CountCapacityOverflow(C)
 
-        acc_keys, acc_cnt, n_unique = acc
-        with profiling.phase("count.readback"):
-            nu = int(n_unique)
-            keys = acc_keys[:nu].cpu().numpy()
-            cnt = acc_cnt[:nu].cpu().numpy()
-        with profiling.phase("count.cut"):
-            total = int(cnt.sum())
-            keep = cnt >= min_count
-            out = i64_to_u64(keys[keep]), cnt[keep].astype(np.uint32)
+        keys, cnt, kept, total, nu = cut_readback(acc, spare, min_count)
     if stats is not None:
-        stats.update(chunks=n_chunks, capacity=C, unique=nu, total=total)
-    return out
+        stats.update(chunks=n_chunks, capacity=C, unique=nu, total=total,
+                     kept=kept)
+    return keys, cnt
 
 
 def chunk_runs_device(codes: torch.Tensor, valid: torch.Tensor, k: int,

@@ -1,8 +1,10 @@
-"""Merges of sorted (key, count) runs, with the counts of equal keys summed.
+"""Merges of sorted (key, count) runs, with the counts of equal keys summed,
+and the ``min_count`` cut of their result.
 
-``chunk_runs`` (M1) and ``merge_accum`` (M2) launch ``csrc/merge_runs.cu``
-for CUDA tensors and run ``chunk_runs_plain`` and ``merge_accum_plain``
-for CPU tensors. Together they replace km_tpu's XLA merge programs
+``chunk_runs`` (M1), ``merge_accum`` (M2) and ``cut`` (C1) launch
+``csrc/merge_runs.cu`` for CUDA tensors and run ``chunk_runs_plain``,
+``merge_accum_plain`` and ``cut_plain`` for CPU tensors. M1 and M2
+replace km_tpu's XLA merge programs
 (``ops/count.py``: ``sum_runs_device`` :195 as the stream uses it,
 ``merge_accum_device`` :369, the fused step ``_jitted_count_merge``
 :408), which re-sorted the whole padded accumulator with every chunk:
@@ -17,6 +19,13 @@ for CPU tensors. Together they replace km_tpu's XLA merge programs
   writes the result into a second buffer of the same capacity C: the
   first C keys in key order, SENTINEL and 0 past them, and the true
   number of distinct keys, which may exceed C.
+- ``cut`` keeps the accumulator's records whose count reaches
+  ``min_count`` and writes them, in key order, as the words of the
+  uint64 keys and the uint32 counts the host wants, into buffers the
+  caller gives (the stream's spare accumulator), with the number kept,
+  the sum of every live count and the live length in one small device
+  tensor; only that tensor and the kept records need cross to the host.
+  It replaces km_tpu's host numpy cut at the end of its stream.
 
 Lengths stay on the device, so a stream of chunks never waits for the
 card. On the card, ``chunk_runs`` is a sample sort: splitters from a
@@ -28,7 +37,8 @@ note). The plain versions compute the same functions with torch: the
 live run starts sorted and reduced; merge positions from ``searchsorted``
 ranks (A[i] goes to i + #(B < A[i]), B[j] to j + #(A <= B[j])); run
 boundaries from key changes, run totals as differences of an int64
-cumsum, ranks by cumsum; no atomics.
+cumsum, ranks by cumsum; no atomics. ``cut_plain`` finds the i-th kept
+record by a ``searchsorted`` on the cumsum of the kept flags.
 """
 
 from __future__ import annotations
@@ -145,6 +155,23 @@ def merge_accum_plain(acc_keys, acc_cnt, acc_n, run_keys, run_cnt, run_n,
     out_n.fill_(runs)
 
 
+def cut_plain(keys, counts, n, min_count: int, out_keys, out_cnt
+              ) -> torch.Tensor:
+    """``cut``'s plain version, into out_keys and out_cnt."""
+    dev = keys.device
+    live = min(int(n), keys.numel())
+    c = counts[:live]
+    incl = torch.cumsum((c >= min_count).to(torch.int64), 0)
+    kept = int(incl[-1]) if live else 0
+    at = torch.searchsorted(incl, torch.arange(1, kept + 1, device=dev))
+    k = keys[at]
+    out_keys[:kept] = torch.where(k == SENTINEL, -1, k)
+    low = counts[at] & 0xFFFFFFFF
+    out_cnt[:kept] = (low - ((low >> 31) << 32)).to(torch.int32)
+    return torch.tensor([kept, int(c.sum()), int(n)], dtype=torch.int64,
+                        device=dev)
+
+
 # ---------------------------------------------------------------------------
 # the wrappers
 
@@ -238,3 +265,48 @@ def merge_accum(acc_keys: torch.Tensor, acc_cnt: torch.Tensor,
 
 
 merge_accum.launches = 0
+
+
+def cut(keys: torch.Tensor, counts: torch.Tensor, n: torch.Tensor,
+        min_count: int, out_keys: torch.Tensor, out_cnt: torch.Tensor
+        ) -> torch.Tensor:
+    """The ``min_count`` cut of an accumulator of capacity C =
+    keys.numel(): of its min(n, C) live records (int64 keys ascending,
+    int64 counts; n 0-d int64), those with count >= min_count go, in key
+    order, to out_keys[:kept] as the words of the uint64 keys (int64;
+    SENTINEL as all ones) and to out_cnt[:kept] as the counts' low 32
+    bits, the words of the uint32 counts (int32). out_keys and out_cnt
+    hold C slots or more and must not overlap the inputs. Returns
+    (kept, the sum of every live count, n) as an int64 tensor [3] on the
+    keys' device; nothing is read on the host."""
+    for name, t in (("keys", keys), ("counts", counts),
+                    ("out_keys", out_keys)):
+        _check(t, torch.int64, name)
+    _check(out_cnt, torch.int32, "out_cnt")
+    _check(n, torch.int64, "n", dim=0)
+    cap = keys.numel()
+    if counts.numel() != cap or cap == 0:
+        raise ValueError("keys and counts must have the same length > 0")
+    if out_keys.numel() < cap or out_cnt.numel() < cap:
+        raise ValueError("the out buffers must hold %d slots" % cap)
+    for out in (out_keys, out_cnt):
+        for t in (keys, counts, n):
+            if _overlaps(out, t):
+                raise ValueError("an out buffer overlaps an input")
+    dev = _same_device((keys, counts, n, out_keys, out_cnt))
+    if dev.type == "cpu":
+        return cut_plain(keys, counts, n, min_count, out_keys, out_cnt)
+    result = torch.empty(3, dtype=torch.int64, device=dev)
+    lib = _build.lib()
+    scratch = _scratch(lib.km_cut_scratch(cap), dev)
+    with torch.cuda.device(dev):
+        code = lib.km_cut(
+            keys.data_ptr(), counts.data_ptr(), n.data_ptr(), cap, min_count,
+            out_keys.data_ptr(), out_cnt.data_ptr(), result.data_ptr(),
+            scratch.data_ptr(), scratch.numel(), _build.stream_ptr(dev))
+    _build.check(code, "cut")
+    cut.launches += 1
+    return result
+
+
+cut.launches = 0

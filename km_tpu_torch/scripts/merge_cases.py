@@ -1,9 +1,11 @@
 """Inputs for the checks of the merge kernels (``ops/merge.py``): the edge
 cases (an accumulator and one chunk's window keys, made from a seed with
 numpy) and the inputs at the shape of a 2^30-base sample's final counting
-pass (made on the device from a seed). The CPU tests hold the plain
-versions against km_tpu with them; the card tests and chip_smoke.py hold
-the kernels against the plain versions."""
+pass (made on the device from a seed); and accumulators for the
+``min_count`` cut (``cut_accumulator``, ``CUT_CASES``). The CPU tests hold
+the plain versions against km_tpu (the cut: against the stream's old
+numpy cut) with them; the card tests and chip_smoke.py hold the kernels
+against the plain versions."""
 
 from __future__ import annotations
 
@@ -25,6 +27,14 @@ CASES = ["empty_accumulator", "chunk_all_sentinel", "all_present", "all_new",
 # more pieces than chunk_runs' tile holds records (8,192), each with one
 # key: too large for the CPU tests' chain of numpy merges
 CARD_CASES = ["key_in_more_pieces_than_tile"]
+# the cut's edge cases: (live records, slots, min_count); "count_2_32"
+# has every live count at 3 * 2^32 or more, "sentinel_live" SENTINEL as
+# its last live key, kept
+CUT_CASES = {"min_count_1": (3000, 5000, 1), "min_count_2": (3000, 5000, 2),
+             "min_count_3": (3000, 5000, 3), "empty": (0, 5000, 2),
+             "none_kept": (3000, 5000, 1 << 40), "all_kept": (5000, 5000, 1),
+             "sentinel_padding": (1, 5000, 1), "count_2_32": (3000, 5000, 2),
+             "sentinel_live": (3000, 5000, 2)}
 LONG_RUN_KEY = 12345
 MANY_PIECES = 64
 MERGE_TILE = 4096  # merged positions of one merge_accum block
@@ -250,3 +260,35 @@ def scale_shape(device, capacity: int = 1 << 23):
     merge.merge_accum_plain(*empty_accumulator(capacity, device),
                             *merge.chunk_runs_plain(*chunk(0)), *acc)
     return acc, chunk(1)
+
+
+def cut_accumulator(live: int, slots: int, device="cpu", seed: int = 0,
+                    kept_share: float = 0.41):
+    """An accumulator for the ``min_count`` cut, made on the device from a
+    seed: `live` ascending distinct keys below 2^62 in `slots` slots,
+    SENTINEL and 0 past them; counts 1, or 2..49 for a `kept_share` of
+    the records, and every 97th count 2^32 more (the uint32 table keeps
+    its low 32 bits). Returns (keys, counts, live length)."""
+    g = torch.Generator(device=device).manual_seed(seed)
+    keys = torch.full((slots,), SENTINEL, dtype=torch.int64, device=device)
+    counts = torch.zeros(slots, dtype=torch.int64, device=device)
+    gaps = torch.randint(1, 1 << 30, (live,), generator=g, device=device)
+    keys[:live] = torch.cumsum(gaps, 0)
+    many = torch.rand(live, generator=g, device=device) < kept_share
+    cnt = torch.where(many, torch.randint(2, 50, (live,), generator=g,
+                                          device=device), 1)
+    cnt[::97] += 1 << 32
+    counts[:live] = cnt
+    return keys, counts, torch.tensor(live, dtype=torch.int64, device=device)
+
+
+def cut_case(name: str, device="cpu"):
+    """-> (accumulator, min_count) of the cut's edge case `name`."""
+    live, slots, min_count = CUT_CASES[name]
+    keys, counts, n = cut_accumulator(live, slots, device,
+                                      seed=list(CUT_CASES).index(name))
+    if name == "count_2_32":
+        counts[:live] += 3 << 32
+    elif name == "sentinel_live":
+        keys[live - 1], counts[live - 1] = SENTINEL, min_count
+    return (keys, counts, n), min_count

@@ -81,7 +81,7 @@ def main_cohort(args, argparser):
     kernels in this command."""
     t0 = time.time()
     counters = (pack.pack_canonical_windows, sort_runs.sort_chunks_runs,
-                merge.chunk_runs, merge.merge_accum)
+                merge.chunk_runs, merge.merge_accum, merge.cut)
     launches0 = [fn.launches for fn in counters]
     targets, paths = [], []
     for seq_f in expand_target_files([args.targets]):
@@ -123,7 +123,7 @@ def main_cohort(args, argparser):
         sys.stderr.write("cohort: no samples for process %d\n" % rank)
     sys.stderr.write("cohort: done in %.3fs (%d sample(s) on process %d/%d; "
                      "kernel launches: pack %d, sort_runs %d, chunk_runs %d, "
-                     "merge_accum %d)\n"
+                     "merge_accum %d, cut %d)\n"
                      % (time.time() - t0, len(my_samples), rank, n_procs,
                         *(fn.launches - n0
                           for fn, n0 in zip(counters, launches0))))

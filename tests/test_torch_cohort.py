@@ -71,13 +71,13 @@ def test_cohort_pair_matches_the_pipe(tmp_path, monkeypatch, capsys):
     from km_tpu_torch.ops import merge, pack, sort_runs
 
     for fn in (pack.pack_canonical_windows, sort_runs.sort_chunks_runs,
-               merge.chunk_runs, merge.merge_accum):
+               merge.chunk_runs, merge.merge_accum, merge.cut):
         monkeypatch.setattr(fn, "launches", 39)
     tcli.main(["cohort", "-t", f"{CAT}/FLT3-ITD_exons_13-15.fa", "-o",
                str(tmp_path), "--device", "cpu", SAMPLES[1]])
     last = capsys.readouterr().err.strip().splitlines()[-1]
     assert last.endswith("kernel launches: pack 0, sort_runs 0, "
-                         "chunk_runs 0, merge_accum 0)"), last
+                         "chunk_runs 0, merge_accum 0, cut 0)"), last
     got = (tmp_path / "03H116_ITD" / "FLT3-ITD_exons_13-15.tsv").read_text()
     assert got == _reference_report(f"{CAT}/FLT3-ITD_exons_13-15.fa",
                                     SAMPLES[1])

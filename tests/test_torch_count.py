@@ -14,8 +14,9 @@ from km_tpu.ops import encode
 from km_tpu.ops.pallas_pack import BLOCK_ROWS, LANES
 
 from km_tpu_torch.convert import accumulator_from_jax
-from km_tpu_torch.device import SENTINEL, split_to_i64
+from km_tpu_torch.device import SENTINEL, i64_to_u64, split_to_i64
 from km_tpu_torch.ops import count as tcount
+from km_tpu_torch.scripts.merge_cases import CUT_CASES, cut_case
 
 BASES = "ACGT"
 
@@ -114,20 +115,29 @@ def test_stream_matches_km_tpu_and_host():
     assert stats["unique"] == len(hk)
 
 
-@pytest.mark.parametrize("min_count", [2, 3])
+@pytest.mark.parametrize("min_count", [1, 2, 3])
 def test_stream_min_count_and_quality(min_count):
+    """The cut into the spare accumulator on CPU tensors: the host
+    counter's table and dtypes; ``kept`` the records read back, of
+    ``unique`` before the cut."""
     rng = np.random.default_rng(12)
     ref = _seq(rng, 1000)
     reads = [ref[o:o + 60] for o in rng.integers(0, len(ref) - 60, 80)]
     k = 17
     hk, hc = jcount.count_batches_host(_batches(reads, 23), k,
                                        min_count=min_count)
+    all_k, all_c = jcount.count_batches_host(_batches(reads, 23), k)
+    stats = {}
     tk, tc = tcount.count_batches_device_stream(
         _batches(reads, 23), k, min_count=min_count, chunk=1 << 11,
-        capacity=1 << 12, device="cpu", sort_chunk=1024)
+        capacity=1 << 12, device="cpu", sort_chunk=1024, stats=stats)
     assert len(hk) and (hc >= min_count).all()
+    assert tk.dtype == np.uint64 and tc.dtype == np.uint32
     np.testing.assert_array_equal(tk, hk)
     np.testing.assert_array_equal(tc, hc)
+    assert stats["kept"] == len(hk) <= stats["unique"] == len(all_k)
+    assert (stats["kept"] < stats["unique"]) == (min_count > 1)
+    assert stats["total"] == int(all_c.sum())
 
 
 def test_accumulator_carried_across_gives_same_merge():
@@ -224,3 +234,36 @@ def test_overflow_then_no_new_keys_still_raises():
         tcount.count_batches_device_stream(
             batches(), k, chunk=1 << 11, capacity=C, device="cpu",
             sort_chunk=1024)
+
+
+def _numpy_cut(acc, min_count):
+    """The stream's finish as it was on the host: the live records read
+    back, then cut and converted with numpy -> (keys, counts, kept,
+    total, unique)."""
+    keys, counts, n = (t.numpy() for t in acc)
+    keys, cnt = keys[:int(n)], counts[:int(n)]
+    keep = cnt >= min_count
+    return (i64_to_u64(keys[keep]), cnt[keep].astype(np.uint32),
+            int(keep.sum()), int(cnt.sum()), int(n))
+
+
+@pytest.mark.parametrize("case", list(CUT_CASES))
+def test_cut_readback_matches_numpy_cut(case):
+    """The finish (the cut into the spare accumulator, the kept records
+    read back) gives what the numpy cut gave, dtypes included, whatever
+    the spare held."""
+    acc, min_count = cut_case(case)
+    slots = acc[0].numel()
+    g = torch.Generator().manual_seed(3)
+    spare = (torch.randint(-1 << 62, 1 << 62, (slots,), generator=g),
+             torch.randint(-1 << 62, 1 << 62, (slots,), generator=g),
+             torch.tensor(7))
+    want = _numpy_cut(acc, min_count)
+    got = tcount.cut_readback(acc, spare, min_count)
+    assert got[0].dtype == np.uint64 and got[1].dtype == np.uint32
+    np.testing.assert_array_equal(got[0], want[0])
+    np.testing.assert_array_equal(got[1], want[1])
+    assert got[2:] == want[2:]
+    if case == "count_2_32":
+        assert (want[1] < 1 << 10).all()  # truncated, as numpy truncates
+

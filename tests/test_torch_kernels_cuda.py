@@ -26,11 +26,12 @@ from km_tpu_torch.ops import (batch_walk, count, merge, pack, pathgraph,
 from km_tpu_torch.ops.count import count_batches_host, empty_accumulator
 from km_tpu_torch.ops.device_table import DeviceCountTable
 from km_tpu_torch.refdata import DATA_DIR, catalog_dir
-from km_tpu_torch.scripts.merge_cases import (CARD_CASES, CASES, SORT_CHUNK,
-                                              SORT_CHUNKS, accumulator,
-                                              make_case, piece_size,
-                                              sample_shape, scale_shape,
-                                              sorted_chunk)
+from km_tpu_torch.scripts.merge_cases import (CARD_CASES, CASES, CUT_CASES,
+                                              SORT_CHUNK, SORT_CHUNKS,
+                                              accumulator, cut_accumulator,
+                                              cut_case, make_case,
+                                              piece_size, sample_shape,
+                                              scale_shape, sorted_chunk)
 
 KS = [2, 15, 16, 17, 21, 31]
 
@@ -299,3 +300,79 @@ def test_merge_kernels_at_the_scale_count_shape(cuda_device):
     acc, runs = scale_shape(cuda_device)
     _merge_kernels_match_plain(acc, runs, acc[0].numel(), sort_runs.CHUNK,
                                cuda_device)
+
+
+def _cut_matches_plain(acc, min_count, dev):
+    """C1 against its plain version on the same accumulator, each into
+    out buffers of the same dead contents: equal result and equal
+    buffers, bit for bit (so nothing past the kept records is written);
+    one launch."""
+    slots = acc[0].numel()
+    g = torch.Generator(device=dev).manual_seed(5)
+    dead = (torch.randint(-1 << 62, 1 << 62, (slots,), generator=g,
+                          device=dev),
+            torch.randint(-1 << 31, 1 << 31, (slots,), generator=g,
+                          device=dev, dtype=torch.int32))
+    launches = merge.cut.launches
+    outs = []
+    for fn in (merge.cut, merge.cut_plain):
+        out = tuple(t.clone() for t in dead)
+        outs.append((fn(*acc, min_count, *out), *out))
+    for got, want in zip(*outs):
+        assert torch.equal(got, want)
+    assert merge.cut.launches == launches + 1
+    return outs[0][0].tolist()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("live", [1, 4095, 4096, 4097, 3 * 4096 + 5,
+                                  (1 << 24) + 3])
+def test_cut_kernel_matches_plain(cuda_device, live):
+    acc = cut_accumulator(live, live + 777, cuda_device, seed=live)
+    kept, total, n = _cut_matches_plain(acc, 2, cuda_device)
+    assert n == live and 0 < kept <= live and total > kept
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", list(CUT_CASES))
+def test_cut_kernel_edge_cases(cuda_device, case):
+    _cut_matches_plain(*cut_case(case, cuda_device), cuda_device)
+
+
+@pytest.mark.cuda
+def test_stream_finish_raises_no_peak(cuda_device, monkeypatch):
+    """The finish of a stream count (the cut into the spare accumulator,
+    the kept records read back) allocates nothing the size of its output:
+    the device's peak, set by the merges, does not rise over it, though a
+    buffer of the kept records would have raised it."""
+    rng = np.random.default_rng(17)
+    ref = rng.integers(0, 4, 1 << 20, dtype=np.uint8)
+    # 40 batches of 1,000 reads, 20 invalid bases after each read
+    reads = ref[rng.integers(0, len(ref) - 100, 40000)[:, None]
+                + np.arange(100)]
+    gap = np.zeros((len(reads), 20), np.uint8)
+    codes = np.concatenate([reads, gap], axis=1).reshape(40, -1)
+    valid = np.concatenate([np.ones(reads.shape, bool), gap > 0],
+                           axis=1).reshape(40, -1)
+    batches = list(zip(codes, valid))
+    at_cut = {}
+
+    def cut(*args):
+        torch.cuda.synchronize(cuda_device)
+        at_cut.update(allocated=torch.cuda.memory_allocated(cuda_device),
+                      peak=torch.cuda.max_memory_allocated(cuda_device))
+        return merge.cut(*args)
+
+    monkeypatch.setattr(count, "cut", cut)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(cuda_device)
+    stats = {}
+    keys, counts = count.count_batches_device_stream(
+        iter(batches), 21, min_count=2, chunk=1 << 16, capacity=1 << 21,
+        device=cuda_device, stats=stats)
+    assert torch.cuda.max_memory_allocated(cuda_device) == at_cut["peak"]
+    assert at_cut["peak"] - at_cut["allocated"] < 12 * stats["kept"]
+    assert stats["kept"] == len(keys) > 0
+    hk, hc = count_batches_host(iter(batches), 21, min_count=2)
+    np.testing.assert_array_equal(keys, hk)
+    np.testing.assert_array_equal(counts, hc)
