@@ -152,7 +152,7 @@ def lib():
         handle.km_chunk_runs_scratch.argtypes = [i64, i32]
         handle.km_chunk_runs_scratch.restype = i64
         handle.km_chunk_runs.argtypes = [vp, vp, i64, i32, vp, vp, vp, i64,
-                                         vp, vp]
+                                         vp, vp, vp]
         handle.km_chunk_runs.restype = i32
         handle.km_merge_accum_scratch.argtypes = [i64, i64]
         handle.km_merge_accum_scratch.restype = i64

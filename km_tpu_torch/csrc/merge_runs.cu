@@ -62,7 +62,9 @@
 // samples can still overfill one, and the rounds keep it right. With more
 // slices left than the tile holds (pieces of 2^10 or less at 2^23 keys)
 // a round takes the least key left: right, and slow; no path of the port
-// runs it.
+// runs it. A launch given a tally adds to it, with two atomics on the
+// device, its run count and the rounds its buckets took beyond one each,
+// so a caller sees how often the rounds ran without a wait.
 //
 // M2 is one pass in tile order, after a small kernel that finds where
 // every tile of 4,096 merged positions cuts the accumulator and the runs
@@ -736,12 +738,13 @@ struct Bucket {
 // the sum over slices of min(q, left) within the tile (0 when more slices
 // are left than the tile holds); v_hi is the least q-th key of the slices
 // with more than q left (their least head for q = 0). Returns the rank
-// after its runs. Apart from the common path, so its registers do not
-// weigh on it.
+// after its runs, and the rounds it took in `rounds`. Apart from the
+// common path, so its registers do not weigh on it.
 __device__ __noinline__ i64 bucket_rounds(const Bucket& bk, const SortSmem& s,
                                           i64* s_warp, i64 base, i64* out_k,
-                                          i64* out_c) {
+                                          i64* out_c, i64& rounds) {
   i64 v_lo = kNone;
+  rounds = 0;
   for (;;) {
     i64 rest = 0, live = 0;
     for (i64 p = threadIdx.x; p < bk.pieces; p += kSortThreads) {
@@ -813,18 +816,27 @@ __device__ __noinline__ i64 bucket_rounds(const Bucket& bk, const SortSmem& s,
       base += 1;
     }
     v_lo = v_hi;
+    ++rounds;
   }
   return base;
 }
 
+// Adds x to a 64-bit counter in device memory.
+__device__ __forceinline__ void tally_add(i64* at, i64 x) {
+  atomicAdd(reinterpret_cast<u64*>(at), static_cast<u64>(x));
+}
+
 // One block per bucket, in ticket order. Runs go to out at the bucket's
-// rank; the last bucket writes their number to *m.
+// rank; the last bucket writes their number to *m. With a `tally`, the
+// last bucket adds that number to tally[0], and a bucket taken in rounds
+// adds the rounds it took beyond one to tally[1].
 __global__ void __launch_bounds__(kSortThreads, 1)
 bucket_kernel(const i64* __restrict__ ck, const u16* __restrict__ clen,
               int piece, i64 pieces, const int* __restrict__ cut,
               const i64* __restrict__ splitters, int buckets,
               i64* __restrict__ out_k, i64* __restrict__ out_c,
-              i64* __restrict__ m, u64* status, unsigned* ticket) {
+              i64* __restrict__ m, i64* tally, u64* status,
+              unsigned* ticket) {
   extern __shared__ i64 smem[];
   const SortSmem s = sort_smem(smem);
   __shared__ i64 s_warp[2 * kSortThreads / 32];
@@ -854,7 +866,10 @@ bucket_kernel(const i64* __restrict__ ck, const u16* __restrict__ clen,
       }
       if (threadIdx.x == 0) {
         publish(status, b, kInclusive, base + runs);
-        if (last) *m = base + runs;
+        if (last) {
+          *m = base + runs;
+          if (tally) tally_add(tally, base + runs);
+        }
         s_base = base;
       }
     }
@@ -867,10 +882,15 @@ bucket_kernel(const i64* __restrict__ ck, const u16* __restrict__ clen,
     if (threadIdx.x == 0) s_base = base;
   }
   __syncthreads();
-  const i64 end = bucket_rounds(bk, s, s_warp, s_base, out_k, out_c);
+  i64 rounds;
+  const i64 end = bucket_rounds(bk, s, s_warp, s_base, out_k, out_c, rounds);
   if (threadIdx.x == 0) {
     publish(status, b, kInclusive, end);
     if (last) *m = end;
+    if (tally) {
+      tally_add(tally + 1, rounds - 1);
+      if (last) tally_add(tally, end);
+    }
   }
 }
 
@@ -1317,11 +1337,13 @@ extern "C" int64_t km_chunk_runs_scratch(int64_t n, int piece) {
 // `piece` (a power of two, 512..2^14; the last piece may be ragged).
 // Writes the runs to out_keys/out_cnt (n slots each; the first *m are
 // live) and their number to *m. scratch: km_chunk_runs_scratch(n, piece)
-// bytes, 256-byte aligned.
+// bytes, 256-byte aligned. tally: null, or two int64 to which the launch
+// adds *m and the rounds its buckets took beyond one each (bucket_kernel).
 extern "C" int km_chunk_runs(const void* keys, const void* lengths,
                              int64_t n, int piece, void* out_keys,
                              void* out_cnt, void* scratch,
-                             int64_t scratch_bytes, void* m, void* stream) {
+                             int64_t scratch_bytes, void* m, void* tally,
+                             void* stream) {
   if (n <= 0 || bad_piece(piece)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
@@ -1361,7 +1383,7 @@ extern "C" int km_chunk_runs(const void* keys, const void* lengths,
                         buckets,
                         static_cast<i64*>(out_keys),
                         static_cast<i64*>(out_cnt), static_cast<i64*>(m),
-                        s.status, s.ticket);
+                        static_cast<i64*>(tally), s.status, s.ticket);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -54,7 +54,7 @@ from .. import native
 from ..device import SENTINEL, check_k, resolve_device
 from ..utils import profiling
 from . import encode
-from .merge import chunk_runs, cut, merge_accum
+from .merge import chunk_runs, cut, merge_accum, tally
 from .pack import pack_canonical_windows
 from .sort_runs import CHUNK, sort_chunks_runs
 
@@ -245,25 +245,28 @@ def _upload(codes: np.ndarray, valid: np.ndarray, dev: torch.device):
         return torch.from_numpy(codes).to(dev), torch.from_numpy(valid).to(dev)
 
 
-def cut_readback(acc, spare, min_count: int):
+def cut_readback(acc, spare, min_count: int, counters=None):
     """The end of a stream count: the accumulator ``acc`` cut at
     ``min_count`` on its device into ``spare``, whose contents are
     dead by then (span ``count.cut``: the launch and the one wait on
-    it, a read of three numbers), then the kept records read back (span
-    ``count.readback``). Returns (keys uint64, counts uint32, kept,
-    total, unique): total sums every live count, before the cut; unique
-    is the accumulator's live length. ``spare`` no longer holds an
-    accumulator afterwards."""
+    it, a read of three numbers and of ``counters``, a 1-d int64 tensor
+    on the same device, if given), then the kept records read back
+    (span ``count.readback``). Returns (keys uint64, counts uint32,
+    kept, total, unique, *counters' values): total sums every live
+    count, before the cut; unique is the accumulator's live length.
+    ``spare`` no longer holds an accumulator afterwards."""
     keys, counts, n = acc
     out_keys, out_cnt = spare[0], spare[1].view(torch.int32)
     with profiling.phase("count.cut"):
-        kept, total, unique = cut(keys, counts, n, min_count, out_keys,
-                                  out_cnt).tolist()
+        numbers = cut(keys, counts, n, min_count, out_keys, out_cnt)
+        if counters is not None:
+            numbers = torch.cat((numbers, counters))
+        kept, total, unique, *rest = numbers.tolist()
     with profiling.phase("count.readback"):
         host_keys = out_keys[:kept].to("cpu", copy=True).numpy()
         host_cnt = out_cnt[:kept].to("cpu", copy=True).numpy()
     return (host_keys.view(np.uint64), host_cnt.view(np.uint32), kept,
-            total, unique)
+            total, unique, *rest)
 
 
 def count_batches_device_stream(batches, k: int, canonical: bool = True,
@@ -285,12 +288,15 @@ def count_batches_device_stream(batches, k: int, canonical: bool = True,
     the input is a one-shot generator, so the caller re-reads it with a
     larger capacity (tools/count.py). ``stats``, a dict, receives the
     chunk count, the capacity, the unique keys before the min_count cut,
-    their count total, and the records kept by the cut and read back
-    (``kept``); and under ``span_s`` (name -> seconds) it adds the
-    seconds of every span that closed inside the call, an overflowed
-    call's too: ``count.input``, ``count.upload``, ``count.cut`` (the
-    cut on the device and the wait on it) and ``count.readback`` (the
-    kept records read back)."""
+    their count total, the records kept by the cut and read back
+    (``kept``), M1's runs summed over the chunks (``runs``: each chunk's
+    distinct keys) and the bucket rounds M1 took beyond one a bucket
+    (``m1_rounds``; 0 on CPU tensors), these two counted on the device
+    and read in the finish's one wait; and under ``span_s`` (name ->
+    seconds) it adds the seconds of every span that closed inside the
+    call, an overflowed call's too: ``count.input``, ``count.upload``,
+    ``count.cut`` (the cut on the device and the wait on it) and
+    ``count.readback`` (the kept records read back)."""
     check_k(k)
     if chunk <= k:
         raise ValueError("chunk must exceed k")
@@ -302,27 +308,31 @@ def count_batches_device_stream(batches, k: int, canonical: bool = True,
         # they swap
         acc, spare = empty_accumulator(C, dev), empty_accumulator(C, dev)
         max_unique = torch.zeros((), dtype=torch.int64, device=dev)
+        # M1's runs and extra bucket rounds, summed over the chunks
+        counters = torch.zeros(2, dtype=torch.int64, device=dev)
         n_chunks = 0
         chunks = chunk_stream(_coalesce_batches(batches, k, 4 * chunk),
                               chunk, k)
-        for codes, valid in _input(chunks):
-            rkeys, rlen = count_chunk_device(
-                *_upload(codes, valid, dev), k, canonical=canonical,
-                sort_chunk=sort_chunk)
-            acc, spare = merge_accum_device(acc, rkeys, rlen, spare,
-                                            sort_chunk=sort_chunk), acc
-            torch.maximum(max_unique, acc[2], out=max_unique)
-            n_chunks += 1
-            if n_chunks % OVERFLOW_CHECK_EVERY == 0 and \
-                    int(max_unique) > C:
-                raise CountCapacityOverflow(C)
+        with tally(counters):
+            for codes, valid in _input(chunks):
+                rkeys, rlen = count_chunk_device(
+                    *_upload(codes, valid, dev), k, canonical=canonical,
+                    sort_chunk=sort_chunk)
+                acc, spare = merge_accum_device(acc, rkeys, rlen, spare,
+                                                sort_chunk=sort_chunk), acc
+                torch.maximum(max_unique, acc[2], out=max_unique)
+                n_chunks += 1
+                if n_chunks % OVERFLOW_CHECK_EVERY == 0 and \
+                        int(max_unique) > C:
+                    raise CountCapacityOverflow(C)
         if int(max_unique) > C:
             raise CountCapacityOverflow(C)
 
-        keys, cnt, kept, total, nu = cut_readback(acc, spare, min_count)
+        keys, cnt, kept, total, nu, runs, rounds = cut_readback(
+            acc, spare, min_count, counters)
     if stats is not None:
         stats.update(chunks=n_chunks, capacity=C, unique=nu, total=total,
-                     kept=kept)
+                     kept=kept, runs=runs, m1_rounds=rounds)
     return keys, cnt
 
 

@@ -39,9 +39,16 @@ ranks (A[i] goes to i + #(B < A[i]), B[j] to j + #(A <= B[j])); run
 boundaries from key changes, run totals as differences of an int64
 cumsum, ranks by cumsum; no atomics. ``cut_plain`` finds the i-th kept
 record by a ``searchsorted`` on the cumsum of the kept flags.
+
+While a ``tally`` is open, every ``chunk_runs`` adds its run count and
+the bucket rounds it took beyond one a bucket to the tally's two device
+counters, without a wait (the plain version takes every bucket at once,
+so it adds 0 rounds). The stream count reads them in its finish.
 """
 
 from __future__ import annotations
+
+import contextlib
 
 import torch
 
@@ -175,6 +182,23 @@ def cut_plain(keys, counts, n, min_count: int, out_keys, out_cnt
 # ---------------------------------------------------------------------------
 # the wrappers
 
+_TALLIES: list[torch.Tensor] = []
+
+
+@contextlib.contextmanager
+def tally(into: torch.Tensor):
+    """While open, every ``chunk_runs`` on ``into``'s device adds its run
+    count m to into[0] and its bucket rounds beyond one a bucket to
+    into[1] (int64 [2]), on the device."""
+    _check(into, torch.int64, "tally")
+    if into.numel() != 2:
+        raise ValueError("a tally holds two counters")
+    _TALLIES.append(into)
+    try:
+        yield into
+    finally:
+        _TALLIES.pop()
+
 
 def chunk_runs(keys: torch.Tensor, lengths: torch.Tensor,
                sort_chunk: int = CHUNK):
@@ -182,15 +206,20 @@ def chunk_runs(keys: torch.Tensor, lengths: torch.Tensor,
     pieces, int32 run lengths [n] at run starts) -> (keys [n], counts
     [n], m): keys[:m] ascending and distinct, counts[:m] their exact int64
     totals (> 0), m a 0-d int64 tensor on the keys' device; the slots
-    past m are unspecified."""
+    past m are unspecified. Adds to an open ``tally`` on that device."""
     _check_chunk(sort_chunk)
     _check(keys, torch.int64, "keys")
     _check(lengths, torch.int32, "lengths")
     if lengths.numel() != keys.numel():
         raise ValueError("keys and lengths differ in length")
     dev = _same_device((keys, lengths))
+    counters = _TALLIES[-1] if _TALLIES and _TALLIES[-1].device == dev \
+        else None
     if dev.type == "cpu":
-        return chunk_runs_plain(keys, lengths, sort_chunk)
+        out = chunk_runs_plain(keys, lengths, sort_chunk)
+        if counters is not None:
+            counters[0] += out[2]
+        return out
     n = keys.numel()
     out_k = torch.empty(n, dtype=torch.int64, device=dev)
     out_c = torch.empty_like(out_k)
@@ -203,7 +232,9 @@ def chunk_runs(keys: torch.Tensor, lengths: torch.Tensor,
         code = lib.km_chunk_runs(
             keys.data_ptr(), lengths.data_ptr(), n, sort_chunk,
             out_k.data_ptr(), out_c.data_ptr(), scratch.data_ptr(),
-            scratch.numel(), m.data_ptr(), _build.stream_ptr(dev))
+            scratch.numel(), m.data_ptr(),
+            None if counters is None else counters.data_ptr(),
+            _build.stream_ptr(dev))
     _build.check(code, "chunk_runs")
     chunk_runs.launches += 1
     return out_k, out_c, m

@@ -262,6 +262,37 @@ def scale_shape(device, capacity: int = 1 << 23):
     return acc, chunk(1)
 
 
+def zipf_chunk(device, windows: int = 1 << 24, s: float = 1.2,
+               transcripts: int = 1 << 18, transcript_bases: int = 2048,
+               read_len: int = 100, k: int = 31, seed: int = 5
+               ) -> torch.Tensor:
+    """One chunk's window keys as K1 packs them (its plain version), made
+    on the device from a seed: reads whose transcripts are expressed by
+    Zipf's law (the transcript of rank r drawn with weight r^-s, a
+    uniform start in it), each followed by one invalid base as the
+    parser gives them, so hot keys are in most pieces of the chunk.
+    Returns int64 keys [windows], SENTINEL for windows that span two
+    reads."""
+    from ..ops.pack import pack_canonical_windows_plain
+
+    g = torch.Generator(device=device).manual_seed(seed)
+    tx = torch.randint(0, 4, (transcripts, transcript_bases), generator=g,
+                       device=device, dtype=torch.uint8)
+    weight = torch.arange(1, transcripts + 1, dtype=torch.float64,
+                          device=device) ** -s
+    n = -(-windows // (read_len + 1))
+    which = torch.multinomial(weight, n, replacement=True, generator=g)
+    start = torch.randint(0, transcript_bases - read_len + 1, (n,),
+                          generator=g, device=device)
+    reads = tx[which[:, None],
+               start[:, None] + torch.arange(read_len, device=device)]
+    sep = torch.zeros((n, 1), dtype=torch.uint8, device=device)
+    codes = torch.cat((reads, sep), 1).reshape(-1)[:windows]
+    valid = torch.cat((torch.ones_like(reads, dtype=torch.bool),
+                       sep.bool()), 1).reshape(-1)[:windows]
+    return pack_canonical_windows_plain(codes, valid, k)
+
+
 def cut_accumulator(live: int, slots: int, device="cpu", seed: int = 0,
                     kept_share: float = 0.41):
     """An accumulator for the ``min_count`` cut, made on the device from a

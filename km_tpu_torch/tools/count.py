@@ -65,8 +65,10 @@ def count_read_files(paths, k: int, canonical: bool = True,
     four times the capacity (counting is stateless, so the retry is
     exact), starting from 2^22 slots as km_tpu does. ``stats``, a dict,
     receives the counter's numbers and, for the stream, the number of
-    retries; every attempt adds its spans to ``stats["span_s"]``, and an
-    attempt that overflowed adds its whole time as ``count.overflowed``.
+    retries; the stream's numbers (capacity, unique, kept, M1's ``runs``
+    and ``m1_rounds``, ...) are those of the attempt that succeeded.
+    Every attempt adds its spans to ``stats["span_s"]``, and an attempt
+    that overflowed adds its whole time as ``count.overflowed``.
 
     With a process ``group``, every rank of it calls this alike and the
     count is sharded over the group on each rank's own device; the

@@ -241,7 +241,10 @@ def test_modes_through_both_clis_write_equal_tables(tmp_path, min_count):
         out = str(tmp_path / ("port_%s.npz" % mode))
         stats = tcli.main(["count", "--device", "cpu", "--mode", mode,
                            *common, "-o", out, fq])
-        assert ("runs" in stats) == (mode == "chunked")
+        # both device modes sum the chunks' runs; the stream's M1 also
+        # counts its bucket rounds
+        assert "runs" in stats
+        assert ("m1_rounds" in stats) == (mode != "chunked")
         assert ("retries" in stats) == (mode != "chunked")
         tables["port_" + mode] = _table(out)
         out = str(tmp_path / ("km_%s.npz" % mode))

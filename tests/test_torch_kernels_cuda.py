@@ -31,7 +31,8 @@ from km_tpu_torch.scripts.merge_cases import (CARD_CASES, CASES, CUT_CASES,
                                               accumulator, cut_accumulator,
                                               cut_case, make_case,
                                               piece_size, sample_shape,
-                                              scale_shape, sorted_chunk)
+                                              scale_shape, sorted_chunk,
+                                              zipf_chunk)
 
 KS = [2, 15, 16, 17, 21, 31]
 
@@ -300,6 +301,46 @@ def test_merge_kernels_at_the_scale_count_shape(cuda_device):
     acc, runs = scale_shape(cuda_device)
     _merge_kernels_match_plain(acc, runs, acc[0].numel(), sort_runs.CHUNK,
                                cuda_device)
+
+
+@pytest.mark.cuda
+def test_chunk_runs_on_zipf_skewed_keys(cuda_device):
+    """M1 on a 2^24-window chunk of reads expressed by Zipf's law
+    (exponent 1.2: the top transcript's keys in most of the 1,024
+    pieces) gives torch.unique's keys and counts, and the tally it adds
+    to holds its run count."""
+    keys = zipf_chunk(cuda_device, s=1.2)
+    want_k, want_c = torch.unique(keys[keys != SENTINEL],
+                                  return_counts=True)
+    counters = torch.zeros(2, dtype=torch.int64, device=cuda_device)
+    with merge.tally(counters):
+        got_k, got_c, m = merge.chunk_runs(
+            *sort_runs.sort_chunks_runs(keys), sort_runs.CHUNK)
+    m = int(m)
+    assert m == want_k.numel() and int(counters[0]) == m
+    assert int(counters[1]) >= 0
+    assert torch.equal(got_k[:m], want_k)
+    assert torch.equal(got_c[:m], want_c)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["all_new", "bucket_over_tile",
+                                  "key_in_more_pieces_than_tile"])
+def test_chunk_runs_counts_its_extra_bucket_rounds(cuda_device, case):
+    """The tally's second counter, M1's bucket rounds beyond one a
+    bucket: 0 on uniform keys; more than 0 where a bucket exceeds the
+    8,192-record tile. Its first is M1's run count."""
+    _, _, chunk, _ = make_case(case)
+    counters = torch.zeros(2, dtype=torch.int64, device=cuda_device)
+    with merge.tally(counters):
+        _, _, m = merge.chunk_runs(
+            *sorted_chunk(chunk, piece_size(case), cuda_device),
+            piece_size(case))
+    assert int(counters[0]) == int(m) > 0
+    if case == "all_new":
+        assert int(counters[1]) == 0
+    else:
+        assert int(counters[1]) > 0
 
 
 def _cut_matches_plain(acc, min_count, dev):
