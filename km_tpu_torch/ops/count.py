@@ -18,16 +18,21 @@ and at the end of the stream:
   cut (CUDA kernel)                     -> the min_count cut, into the
                                            spare accumulator
 The stream keeps two accumulators of C slots and merges each chunk from
-one into the other, so the accumulator is never sorted again and no
-length is read back until the end; then only the kept records are read
-back, once.
+one into the other, so the accumulator is never sorted again; at the
+end only the kept records are read back, once. Each chunk's unique-key
+count is read once the next chunk is parsed, before its upload (whose
+wait covers the kernels anyway). A merge that overflowed C is thrown
+away: the accumulator before it is copied into a pair of the smallest
+doubling of C that holds the keys, and the chunk, still on the host,
+is counted again into it. The input is read once.
 
 Two defects of km_tpu's stream are not reproduced:
 - run totals are exact (differences of an int64 prefix sum, no
   ``max_run`` bound that can undercount);
-- the overflow check reads a running maximum of the unique-key count,
-  so an overflow that truncated keys raises even when a later chunk
-  brings no new key.
+- every chunk's unique-key count is checked, so an overflow that
+  truncated keys grows the accumulator even when a later chunk brings
+  no new key (km_tpu checks only the last and returns a truncated
+  table).
 
 ``count_batches_device_compact`` (``count --mode chunked``) keeps no
 accumulator on the device: each chunk's runs are summed there, read back
@@ -57,10 +62,6 @@ from . import encode
 from .merge import chunk_runs, cut, merge_accum, tally
 from .pack import pack_canonical_windows
 from .sort_runs import CHUNK, sort_chunks_runs
-
-# the running maximum is read every this many chunks, and at the end
-OVERFLOW_CHECK_EVERY = 16
-
 
 # ---------------------------------------------------------------------------
 # host (numpy) spec
@@ -161,8 +162,8 @@ def _coalesce_batches(batches, k: int, min_len: int):
 
 
 class CountCapacityOverflow(RuntimeError):
-    """The streaming accumulator's capacity was exceeded; retry with a
-    larger ``capacity``."""
+    """An accumulator of fixed capacity was exceeded (``scale_count``);
+    retry with a larger ``capacity``."""
 
     def __init__(self, capacity: int):
         super().__init__(f"count accumulator capacity {capacity} "
@@ -269,6 +270,17 @@ def cut_readback(acc, spare, min_count: int, counters=None):
             total, unique, *rest)
 
 
+def _widened(acc, C: int):
+    """Accumulator ``acc`` copied into C slots, at least its own: its
+    keys, counts and live length, then SENTINEL and 0."""
+    keys, counts, n = acc
+    out = empty_accumulator(C, keys.device)
+    out[0][:keys.numel()].copy_(keys)
+    out[1][:counts.numel()].copy_(counts)
+    out[2].copy_(n)
+    return out
+
+
 def count_batches_device_stream(batches, k: int, canonical: bool = True,
                                 min_count: int = 1, chunk: int = 1 << 24,
                                 capacity: int = 1 << 22, device="cuda",
@@ -281,58 +293,92 @@ def count_batches_device_stream(batches, k: int, canonical: bool = True,
     bases between batches, so no window spans two) before they are cut
     into chunks that overlap by k-1 bases, so chunks are full.
 
+    ``capacity`` is the accumulator's first: a chunk whose merge
+    overflows it is merged again, from the accumulator before it, into
+    a pair grown to the smallest doubling that holds the keys (the
+    growth). The old pair is freed before the new spare is allocated,
+    so the device's peak is that of a count started at the final
+    capacity. The input is read once.
+
     The min_count cut runs on the device into the spare accumulator
     (``cut_readback``), so only the kept records are read back.
 
-    On overflow the work is discarded and CountCapacityOverflow raised:
-    the input is a one-shot generator, so the caller re-reads it with a
-    larger capacity (tools/count.py). ``stats``, a dict, receives the
-    chunk count, the capacity, the unique keys before the min_count cut,
+    ``stats``, a dict, receives the chunk count, the final capacity,
+    the growths (``grows``), the unique keys before the min_count cut,
     their count total, the records kept by the cut and read back
     (``kept``), M1's runs summed over the chunks (``runs``: each chunk's
-    distinct keys) and the bucket rounds M1 took beyond one a bucket
-    (``m1_rounds``; 0 on CPU tensors), these two counted on the device
-    and read in the finish's one wait; and under ``span_s`` (name ->
-    seconds) it adds the seconds of every span that closed inside the
-    call, an overflowed call's too: ``count.input``, ``count.upload``,
-    ``count.cut`` (the cut on the device and the wait on it) and
-    ``count.readback`` (the kept records read back)."""
+    distinct keys, a chunk counted again by a growth once) and the
+    bucket rounds M1 took beyond one a bucket (``m1_rounds``; 0 on CPU
+    tensors), these two counted on the device and read in the finish's
+    one wait; and under ``span_s`` (name -> seconds) it adds the seconds
+    of every span that closed inside the call: ``count.input``,
+    ``count.upload``, ``count.grow`` (a growth: the copy, the frees and
+    the chunk counted again; absent where none ran), ``count.cut`` (the
+    cut on the device and the wait on it) and ``count.readback`` (the
+    kept records read back)."""
     check_k(k)
     if chunk <= k:
         raise ValueError("chunk must exceed k")
+    if capacity <= 0:
+        raise ValueError("capacity must be > 0")
     dev = resolve_device(device)
     C = capacity
+    grows = n_chunks = 0
     span_s = {} if stats is None else stats.setdefault("span_s", {})
     with profiling.collect(span_s):
         # the chunk merges from one accumulator into the other, then
         # they swap
         acc, spare = empty_accumulator(C, dev), empty_accumulator(C, dev)
-        max_unique = torch.zeros((), dtype=torch.int64, device=dev)
         # M1's runs and extra bucket rounds, summed over the chunks
         counters = torch.zeros(2, dtype=torch.int64, device=dev)
-        n_chunks = 0
+
+        def merge(codes, valid):
+            nonlocal acc, spare
+            rkeys, rlen = count_chunk_device(
+                *_upload(codes, valid, dev), k, canonical=canonical,
+                sort_chunk=sort_chunk)
+            acc, spare = merge_accum_device(acc, rkeys, rlen, spare,
+                                            sort_chunk=sort_chunk), acc
+
+        def fit(codes, valid):
+            """Grow if the merge of (codes, valid), the last chunk
+            merged, overflowed C; spare still holds the accumulator that
+            merge read."""
+            nonlocal acc, spare, C, grows
+            n = int(acc[2])
+            if n <= C:
+                return
+            with profiling.phase("count.grow"):
+                while C < n:
+                    C *= 2
+                acc = _widened(spare, C)
+                spare = None  # freed before its successor is allocated
+                spare = empty_accumulator(C, dev)
+                # the tally holds the chunk's runs already
+                with tally(torch.zeros(2, dtype=torch.int64, device=dev)):
+                    merge(codes, valid)
+            grows += 1
+
+        last = None
         chunks = chunk_stream(_coalesce_batches(batches, k, 4 * chunk),
                               chunk, k)
         with tally(counters):
             for codes, valid in _input(chunks):
-                rkeys, rlen = count_chunk_device(
-                    *_upload(codes, valid, dev), k, canonical=canonical,
-                    sort_chunk=sort_chunk)
-                acc, spare = merge_accum_device(acc, rkeys, rlen, spare,
-                                                sort_chunk=sort_chunk), acc
-                torch.maximum(max_unique, acc[2], out=max_unique)
+                # the last chunk's kernels ran while this one was
+                # parsed, and the upload below would wait for them too
+                if last is not None:
+                    fit(*last)
+                merge(codes, valid)
+                last = codes, valid
                 n_chunks += 1
-                if n_chunks % OVERFLOW_CHECK_EVERY == 0 and \
-                        int(max_unique) > C:
-                    raise CountCapacityOverflow(C)
-        if int(max_unique) > C:
-            raise CountCapacityOverflow(C)
+            if last is not None:
+                fit(*last)
 
         keys, cnt, kept, total, nu, runs, rounds = cut_readback(
             acc, spare, min_count, counters)
     if stats is not None:
-        stats.update(chunks=n_chunks, capacity=C, unique=nu, total=total,
-                     kept=kept, runs=runs, m1_rounds=rounds)
+        stats.update(chunks=n_chunks, capacity=C, grows=grows, unique=nu,
+                     total=total, kept=kept, runs=runs, m1_rounds=rounds)
     return keys, cnt
 
 

@@ -9,12 +9,11 @@ rule that moves small inputs elsewhere: the device asked for is used, or
 the run fails.
 
 ``--mode`` picks the device strategy, as in km_tpu: ``stream`` (and
-``auto``) keeps one accumulator on the device and reads it back once,
-re-reading the files with four times the capacity when it overflows;
-``chunked`` reads each chunk's runs back and k-way-merges them on the
-host at the end, so it has no capacity and reads the files once, but
-holds every run in host memory until the merge. ``--device host``
-ignores it.
+``auto``) keeps one accumulator on the device, grown there when a chunk
+overflows it, and reads it back once; ``chunked`` reads each chunk's
+runs back and k-way-merges them on the host at the end, so it has no
+capacity, but holds every run in host memory until the merge. Both read
+the files once. ``--device host`` ignores it.
 
 Under torchrun with more than one process (``python -m
 torch.distributed.run --nproc_per_node=N -m km_tpu_torch count ...``),
@@ -37,7 +36,7 @@ import torch.distributed as dist
 from ..device import resolve_device
 from ..io.fastq import read_batches
 from ..models.table import CountTable
-from ..ops.count import (CountCapacityOverflow, count_batches_device_compact,
+from ..ops.count import (count_batches_device_compact,
                          count_batches_device_stream, count_batches_host)
 from ..parallel import distributed
 
@@ -61,14 +60,12 @@ def count_read_files(paths, k: int, canonical: bool = True,
     size, useful when host memory is the roomier resource); 'auto' =
     'stream'. 'host' ignores it, and so does a process ``group``.
 
-    In stream mode, on accumulator overflow the files are re-read with
-    four times the capacity (counting is stateless, so the retry is
-    exact), starting from 2^22 slots as km_tpu does. ``stats``, a dict,
-    receives the counter's numbers and, for the stream, the number of
-    retries; the stream's numbers (capacity, unique, kept, M1's ``runs``
-    and ``m1_rounds``, ...) are those of the attempt that succeeded.
-    Every attempt adds its spans to ``stats["span_s"]``, and an attempt
-    that overflowed adds its whole time as ``count.overflowed``.
+    In stream mode the accumulator starts at 2^22 slots, as km_tpu's
+    does, and doubles on the device as the keys need (ops.count's
+    growth), so the files are read once. ``stats``, a dict, receives the
+    counter's numbers (capacity, grows, unique, kept, M1's ``runs`` and
+    ``m1_rounds``, its spans under ``span_s``, ...) and, for the stream,
+    ``retries``: the times the files were read again, 0.
 
     With a process ``group``, every rank of it calls this alike and the
     count is sharded over the group on each rank's own device; the
@@ -91,30 +88,13 @@ def count_read_files(paths, k: int, canonical: bool = True,
         return count_batches_device_compact(
             batches, k, canonical=canonical, min_count=min_count,
             chunk=CHUNK[dev.type], device=dev, stats=stats)
-    capacity = START_CAPACITY
-    retries = 0
-    while True:
-        t0 = time.perf_counter_ns()
-        try:
-            out = count_batches_device_stream(
-                batches, k, canonical=canonical, min_count=min_count,
-                chunk=CHUNK[dev.type], capacity=capacity, device=dev,
-                stats=stats)
-        except CountCapacityOverflow:
-            if stats is not None:
-                span_s = stats["span_s"]
-                spent = (time.perf_counter_ns() - t0) / 1e9
-                span_s["count.overflowed"] = (
-                    span_s.get("count.overflowed", 0.0) + spent)
-            capacity *= 4
-            retries += 1
-            sys.stderr.write("count table capacity exceeded; retrying "
-                             "with %d slots\n" % capacity)
-            batches = read_batches(paths, min_quality=min_quality)
-            continue
-        if stats is not None:
-            stats["retries"] = retries
-        return out
+    out = count_batches_device_stream(
+        batches, k, canonical=canonical, min_count=min_count,
+        chunk=CHUNK[dev.type], capacity=START_CAPACITY, device=dev,
+        stats=stats)
+    if stats is not None:
+        stats["retries"] = 0
+    return out
 
 
 def main_count(args, argparser):

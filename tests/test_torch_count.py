@@ -203,21 +203,36 @@ def test_sum_runs_exact_where_km_tpu_bound_undercounts():
     assert _as_map(np.asarray(jlo), jbound)[7] < want[7]
 
 
+def _grown(start, n):
+    """The smallest doubling of ``start`` that holds n keys."""
+    while start < n:
+        start *= 2
+    return start
+
+
 def test_capacity_overflow_raises():
+    """An overflow no longer raises: from 256 slots the first chunk's
+    ~2,000 distinct keys take three doublings in one growth, and the
+    whole table comes back."""
     rng = np.random.default_rng(13)
     reads = [_seq(rng, 3000)]  # nearly all 21-mers distinct
-    with pytest.raises(tcount.CountCapacityOverflow) as e:
-        tcount.count_batches_device_stream(
-            _batches(reads), 21, chunk=1 << 11, capacity=256, device="cpu",
-            sort_chunk=1024)
-    assert e.value.capacity == 256
+    stats = {}
+    tk, tc = tcount.count_batches_device_stream(
+        _batches(reads), 21, chunk=1 << 11, capacity=256, device="cpu",
+        sort_chunk=1024, stats=stats)
+    hk, hc = jcount.count_batches_host(_batches(reads), 21)
+    np.testing.assert_array_equal(tk, hk)
+    np.testing.assert_array_equal(tc, hc)
+    assert 1 <= stats["grows"] < np.log2(stats["capacity"] // 256)
+    assert stats["capacity"] == _grown(256, len(hk)) and len(hk) > 2048
 
 
 def test_overflow_then_no_new_keys_still_raises():
     """An overflow truncates the accumulator; the chunks after it bring
     no key. km_tpu checks only the latest unique count
     (ops/count.py:480-484) and returns the truncated table; the port
-    keeps a running maximum and raises."""
+    checks every chunk's, grows the accumulator on the overflow and
+    returns the whole table."""
     rng = np.random.default_rng(14)
     k, C = 21, 256
     dense = encode.seq_to_codes(_seq(rng, 3000))
@@ -226,14 +241,58 @@ def test_overflow_then_no_new_keys_still_raises():
         yield dense, np.ones(len(dense), bool)
         yield np.zeros(20000, np.uint8), np.zeros(20000, bool)
 
-    hk, _ = jcount.count_batches_host(batches(), k)
+    hk, hc = jcount.count_batches_host(batches(), k)
     jk, _ = jcount.count_batches_device_stream(batches(), k, chunk=1 << 11,
                                                capacity=C)
     assert len(jk) == C < len(hk)  # km_tpu: silently truncated
-    with pytest.raises(tcount.CountCapacityOverflow):
-        tcount.count_batches_device_stream(
-            batches(), k, chunk=1 << 11, capacity=C, device="cpu",
-            sort_chunk=1024)
+    stats = {}
+    tk, tc = tcount.count_batches_device_stream(
+        batches(), k, chunk=1 << 11, capacity=C, device="cpu",
+        sort_chunk=1024, stats=stats)
+    np.testing.assert_array_equal(tk, hk)
+    np.testing.assert_array_equal(tc, hc)
+    assert stats["grows"] >= 1 and stats["capacity"] == _grown(C, len(hk))
+
+
+@pytest.mark.parametrize("min_count", [1, 2])
+def test_a_growth_at_the_last_chunk(monkeypatch, min_count):
+    """Three chunks of a 50-base repeat fit 128 slots; the fourth and
+    last brings ~1,500 new keys. Its merge is the first to overflow, so
+    the accumulator grows after the input has ended, before the cut,
+    and the table is still exact."""
+    rng = np.random.default_rng(15)
+    k, chunk, C = 21, 1 << 11, 128
+    stride = chunk - k + 1
+    repeat = np.tile(rng.integers(0, 4, 50, dtype=np.uint8), 3 * stride)
+    codes = np.concatenate([repeat[:3 * stride],
+                            rng.integers(0, 4, 1500, dtype=np.uint8)])
+    batches = [(codes, rng.random(len(codes)) > 0.001)]
+    events = []
+    real_stream, real_widened = tcount.chunk_stream, tcount._widened
+
+    def chunk_stream(*a, **kw):
+        for item in real_stream(*a, **kw):
+            events.append("chunk")
+            yield item
+        events.append("end")
+
+    def widened(*a):
+        events.append("grow")
+        return real_widened(*a)
+
+    monkeypatch.setattr(tcount, "chunk_stream", chunk_stream)
+    monkeypatch.setattr(tcount, "_widened", widened)
+    stats = {}
+    tk, tc = tcount.count_batches_device_stream(
+        iter(batches), k, min_count=min_count, chunk=chunk, capacity=C,
+        device="cpu", sort_chunk=1024, stats=stats)
+    hk, hc = jcount.count_batches_host(iter(batches), k,
+                                       min_count=min_count)
+    np.testing.assert_array_equal(tk, hk)
+    np.testing.assert_array_equal(tc, hc)
+    assert events == ["chunk"] * 4 + ["end", "grow"]
+    assert stats["grows"] == 1 and stats["chunks"] == 4
+    assert stats["capacity"] == _grown(C, stats["unique"]) == 2048
 
 
 def _numpy_cut(acc, min_count):

@@ -417,3 +417,48 @@ def test_stream_finish_raises_no_peak(cuda_device, monkeypatch):
     hk, hc = count_batches_host(iter(batches), 21, min_count=2)
     np.testing.assert_array_equal(keys, hk)
     np.testing.assert_array_equal(counts, hc)
+
+
+@pytest.mark.cuda
+def test_a_grown_stream_peaks_no_higher_than_its_final_capacity(
+        cuda_device):
+    """A stream count that grows from 2^12 slots reaches the device peak
+    of the same count started at its final capacity, within 1 MiB (the
+    old pair is freed before the new spare is allocated), and gives the
+    same table and numbers: a chunk counted again by a growth is in M1's
+    runs once."""
+    rng = np.random.default_rng(19)
+    ref = rng.integers(0, 4, 1 << 21, dtype=np.uint8)
+    reads = ref[rng.integers(0, len(ref) - 100, 40000)[:, None]
+                + np.arange(100)]
+    gap = np.zeros((len(reads), 20), np.uint8)
+    codes = np.concatenate([reads, gap], axis=1).reshape(40, -1)
+    valid = np.concatenate([np.ones(reads.shape, bool), gap > 0],
+                           axis=1).reshape(40, -1)
+    batches = list(zip(codes, valid))
+
+    def run(capacity):
+        torch.cuda.synchronize(cuda_device)
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats(cuda_device)
+        before = torch.cuda.memory_allocated(cuda_device)
+        stats = {}
+        out = count.count_batches_device_stream(
+            iter(batches), 21, min_count=2, chunk=1 << 16,
+            capacity=capacity, device=cuda_device, stats=stats)
+        torch.cuda.synchronize(cuda_device)
+        return (out, stats,
+                torch.cuda.max_memory_allocated(cuda_device) - before)
+
+    (gk, gc), grown, grown_peak = run(1 << 12)
+    assert grown["grows"] >= 2 and grown["capacity"] > 1 << 12
+    (fk, fc), fixed, fixed_peak = run(grown["capacity"])
+    assert fixed["grows"] == 0
+    assert grown_peak <= fixed_peak + (1 << 20)
+    np.testing.assert_array_equal(gk, fk)
+    np.testing.assert_array_equal(gc, fc)
+    for name in ("unique", "total", "kept", "runs", "capacity"):
+        assert grown[name] == fixed[name], name
+    hk, hc = count_batches_host(iter(batches), 21, min_count=2)
+    np.testing.assert_array_equal(gk, hk)
+    np.testing.assert_array_equal(gc, hc)

@@ -161,23 +161,27 @@ def test_merge_accum_pads_only_what_was_live():
 @pytest.mark.parametrize("case", ["C", "C_plus_1", "3C"])
 def test_stream_capacity_bounds(case):
     """A stream whose distinct keys fill the capacity exactly counts them
-    all; one more, or three times as many, raises."""
+    all at that capacity; from one slot fewer, or a third as many, the
+    accumulator grows to the smallest doubling that holds them, and the
+    table is the same."""
     rng = np.random.default_rng(4)
     batches = [(rng.integers(0, 4, 300, dtype=np.uint8),
                 rng.random(300) > 0.02) for _ in range(12)]
     hk, hc = tcount.count_batches_host(iter(batches), 21)
     distinct = len(hk)
-    kw = dict(chunk=1 << 11, device="cpu", sort_chunk=1024)
-    if case == "C":
-        dk, dc = tcount.count_batches_device_stream(
-            iter(batches), 21, capacity=distinct, **kw)
-        np.testing.assert_array_equal(dk, hk)
-        np.testing.assert_array_equal(dc, hc)
-        return
-    capacity = distinct - 1 if case == "C_plus_1" else distinct // 3
-    with pytest.raises(tcount.CountCapacityOverflow):
-        tcount.count_batches_device_stream(iter(batches), 21,
-                                           capacity=capacity, **kw)
+    capacity = {"C": distinct, "C_plus_1": distinct - 1,
+                "3C": distinct // 3}[case]
+    stats = {}
+    dk, dc = tcount.count_batches_device_stream(
+        iter(batches), 21, capacity=capacity, chunk=1 << 11, device="cpu",
+        sort_chunk=1024, stats=stats)
+    np.testing.assert_array_equal(dk, hk)
+    np.testing.assert_array_equal(dc, hc)
+    grown = capacity
+    while grown < distinct:
+        grown *= 2
+    assert stats["capacity"] == grown
+    assert (stats["grows"] >= 1) == (case != "C")
 
 
 def test_wrappers_refuse_what_the_kernels_do_not_take():

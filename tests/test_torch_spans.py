@@ -124,10 +124,11 @@ def _fastq(path, n_reads=400, seed=17):
 
 def test_every_attempt_of_a_count_adds_its_spans(tmp_path, monkeypatch,
                                                  spans):
-    """Two capacity retries (2^8 -> 2^10 -> 2^12 slots for ~2,500 keys):
-    ``count.input`` is summed over all three attempts and the two that
-    overflowed add their time as ``count.overflowed``. A clock that
-    steps 1 us a read makes each input step exactly 1 us."""
+    """From 2^8 slots the accumulator grows on the device to 2^12 for
+    ~2,500 keys: the file is parsed once (one ``count.input`` step a
+    chunk, and the step that ends it), each growth is a ``count.grow``
+    span, and no attempt is thrown away. A clock that steps 1 us a read
+    makes each input step exactly 1 us."""
     fq = _fastq(tmp_path / "reads.fq")
     monkeypatch.setattr(tools_count, "START_CAPACITY", 1 << 8)
     clock = iter(range(0, 10 ** 12, 1000))
@@ -137,12 +138,16 @@ def test_every_attempt_of_a_count_adds_its_spans(tmp_path, monkeypatch,
     tools_count.count_read_files([fq], 21, min_count=1, device="cpu",
                                  stats=stats)
     seconds = time.perf_counter() - t0
-    assert stats["retries"] == 2 and stats["capacity"] == 1 << 12
+    assert stats["retries"] == 0 and stats["capacity"] == 1 << 12
+    assert stats["grows"] >= 1
     span_s = stats["span_s"]
     steps = [s for s in spans if s[0] == "count.input"]
-    assert len(steps) == 3 * (stats["chunks"] + 1)  # the last step ends it
+    assert len(steps) == stats["chunks"] + 1  # the last step ends it
     assert span_s["count.input"] == pytest.approx(len(steps) * 1e-6)
-    assert 0 < span_s["count.overflowed"] < seconds
+    grows = [s for s in spans if s[0] == "count.grow"]
+    assert len(grows) == stats["grows"]
+    assert 0 < span_s["count.grow"] < seconds
+    assert "count.overflowed" not in span_s
     assert "input_s" not in stats
 
 
