@@ -33,9 +33,9 @@ Where it differs from km_tpu, on purpose:
   search inside each target's slice: the same membership, in a dozen
   launches instead of ~100 per round;
 - a Python loop runs the rounds, and the exit test (a host sync) is
-  read every CHECK_EVERY rounds; on a card a block of rounds is
-  captured once and replayed as a CUDA graph (utils.graphs), since a
-  round is ~130 small launches. Rounds past the exit are no-ops:
+  read every CHECK_EVERY rounds; a block of rounds is one call of a
+  ``utils.graphs.Replay``, which decides when it becomes a CUDA graph
+  (a round is ~130 small launches). Rounds past the exit are no-ops:
   each round first computes km_tpu's loop condition on the device and
   gates its overflow flags with it, and a round with no live walklet
   and no seed left changes no state;
@@ -272,8 +272,7 @@ class _Walk:
 
     def run(self) -> tuple[bool, bool]:
         """Rounds until km_tpu's loop would exit, in blocks of
-        CHECK_EVERY (on a card the first block runs eagerly and the
-        rest replay it as one CUDA graph); returns (overflow,
+        CHECK_EVERY (utils.graphs.Replay); returns (overflow,
         depth_overflow)."""
 
         def block():
@@ -281,17 +280,10 @@ class _Walk:
                 self.round()
 
         if self.n_seeds:
-            if self.stack.device.type == "cuda":
-                cuda_graphs.warm_up(block)
-                if self._live_now():
-                    graph = cuda_graphs.capture(self, self.STATE, block)
-                    graph.replay()
-                    while self._live_now():
-                        graph.replay()
-            else:
-                block()
-                while self._live_now():
-                    block()
+            run = cuda_graphs.Replay(self, self.STATE, block)
+            run()
+            while self._live_now():
+                run()
         with profiling.phase("walk.sync"):
             return bool(self.overflow), bool(self.depth_ovf)
 

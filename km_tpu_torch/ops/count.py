@@ -2,10 +2,9 @@
 
 Replaces the device half of km_tpu/ops/count.py (count_chunk_device,
 sum_runs_device, merge_accum_device, count_batches_device_stream,
-count_batches_device_compact, count_batches_device). The
-host half (window_valid, count_batches_host, merge_runs, chunk_stream,
-_coalesce_batches) is the port's copy of km_tpu's numpy code, held equal
-to it by the CPU tests.
+count_batches_device_compact). The host half (window_valid,
+count_batches_host, merge_runs, chunk_stream, _coalesce_batches) is the
+port's copy of km_tpu's numpy code, held equal to it by the CPU tests.
 
 Per fixed-size chunk of read bases, uploaded as codes and flags:
   pack_canonical_windows (CUDA kernel)  -> one int64 key per position
@@ -37,8 +36,7 @@ Two defects of km_tpu's stream are not reproduced:
 ``count_batches_device_compact`` (``count --mode chunked``) keeps no
 accumulator on the device: each chunk's runs are summed there, read back
 and merged on the host, so there is no capacity to size and the input is
-never read twice. ``count_batches_device`` reads every sort-chunk back
-as its own run and merges them all at once.
+never read twice.
 
 Not carried over from km_tpu's compact path: ``pack2_host`` /
 ``unpack2_device`` (2-bit packing of the upload, which served a narrow
@@ -507,35 +505,3 @@ def count_batches_device_compact(batches, k: int, canonical: bool = True,
     keep = cnt >= min_count
     return keys[keep], cnt[keep].astype(np.uint32)
 
-
-def count_batches_device(batches, k: int, canonical: bool = True,
-                         min_count: int = 1, chunk: int = 1 << 22,
-                         device="cuda", sort_chunk: int = CHUNK):
-    """Count k-mers over (codes, valid) host batches with the device
-    kernels, as km_tpu's function of this name: each chunk is read back
-    whole, every sort-chunk's live keys are one sorted run, and all runs
-    combine in a single native k-way merge at the end (numpy pairwise
-    merge where the native library is absent)."""
-    check_k(k)
-    if chunk <= k:
-        raise ValueError("chunk must exceed k")
-    dev = resolve_device(device)
-    runs: list[tuple[np.ndarray, np.ndarray]] = []
-    for codes, valid in chunk_stream(batches, chunk, k):
-        keys, lengths = count_chunk_device(
-            torch.from_numpy(codes).to(dev), torch.from_numpy(valid).to(dev),
-            k, canonical=canonical, sort_chunk=sort_chunk)
-        keys = keys.cpu().numpy()
-        lengths = lengths.cpu().numpy().astype(np.int64)
-        for off in range(0, len(keys), sort_chunk):
-            c = lengths[off:off + sort_chunk]
-            keep = c > 0
-            if keep.any():
-                # live keys lie below 2**62: the words are the uint64 keys
-                runs.append((keys[off:off + sort_chunk][keep].view(np.uint64),
-                             c[keep]))
-    if not runs:
-        return np.empty(0, np.uint64), np.empty(0, np.uint32)
-    keys, cnt = _merge_all(runs)
-    keep = cnt >= min_count
-    return keys[keep], cnt[keep].astype(np.uint32)

@@ -56,7 +56,8 @@ class Refinement:
     ``queue(blocks)`` enqueues blocks with no host sync; ``finish()``
     reads the convergence test after each further block, as km_tpu's
     loop tests it, and returns (coef, rvaf). Blocks queued past the
-    point where every problem has frozen are no-ops."""
+    point where every problem has frozen are no-ops. Each block is one
+    call of a ``utils.graphs.Replay``."""
 
     STATE = ("coef", "done")
 
@@ -67,7 +68,7 @@ class Refinement:
         self.done = torch.zeros(coef0.shape[0], dtype=torch.bool,
                                 device=coef0.device)
         self.iters = 0
-        self.graph = None
+        self._run = cuda_graphs.Replay(self, self.STATE, self._block)
 
     def _block(self) -> None:
         for _ in range(UNROLL):
@@ -75,18 +76,11 @@ class Refinement:
                                          self.n_kmers, self.coef, self.done)
 
     def queue(self, blocks: int) -> None:
-        """Enqueue up to ``blocks`` blocks; on a card the first runs
-        eagerly and the rest replay it as one CUDA graph."""
+        """Enqueue up to ``blocks`` blocks."""
         for _ in range(blocks):
             if self.iters >= MAX_ITERS:
                 return
-            if self.graph is not None:
-                self.graph.replay()
-            elif self.coef.device.type == "cuda":
-                cuda_graphs.warm_up(self._block)
-                self.graph = cuda_graphs.capture(self, self.STATE, self._block)
-            else:
-                self._block()
+            self._run()
             self.iters += UNROLL
 
     def _converged(self) -> bool:

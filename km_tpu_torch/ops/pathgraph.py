@@ -84,10 +84,11 @@ def sweep_kernel(ids: torch.Tensor, w: torch.Tensor, starts: torch.Tensor
 
     ids [B, n, W] int64 successor ids (-1 = empty lane), w [B, n, W]
     float32 edge weights, starts [B] int64. Returns the predecessor
-    trees [B, n] int32 (-1 = unreached), exactly the host spec's. On a
-    card the iterations run in blocks of SWEEP_BLOCK replayed as one
-    CUDA graph, rounding n up to a whole block: the extra iterations
-    re-extract parked nodes, which changes nothing."""
+    trees [B, n] int32 (-1 = unreached), exactly the host spec's. Past
+    SWEEP_BLOCK iterations they run in blocks of SWEEP_BLOCK, one call
+    of a ``utils.graphs.Replay`` each, rounding n up to a whole block:
+    the extra iterations re-extract parked nodes, which changes
+    nothing."""
     sweep_kernel.calls += 1
     sw = _Sweeps(ids, w, starts)
     n = sw.n
@@ -96,11 +97,10 @@ def sweep_kernel(ids: torch.Tensor, w: torch.Tensor, starts: torch.Tensor
         for _ in range(SWEEP_BLOCK):
             sw.step()
 
-    if ids.device.type == "cuda" and n > SWEEP_BLOCK:
-        cuda_graphs.warm_up(block)
-        graph = cuda_graphs.capture(sw, _Sweeps.STATE, block)
-        for _ in range(-(-n // SWEEP_BLOCK) - 1):
-            graph.replay()
+    if n > SWEEP_BLOCK:
+        run = cuda_graphs.Replay(sw, _Sweeps.STATE, block)
+        for _ in range(-(-n // SWEEP_BLOCK)):
+            run()
     else:
         for _ in range(n):
             sw.step()

@@ -34,6 +34,8 @@ from km_tpu_torch.scripts.merge_cases import (CARD_CASES, CASES, CUT_CASES,
                                               scale_shape, sorted_chunk,
                                               zipf_chunk)
 
+from test_torch_spans import branch_walk, chain_sweeps
+
 KS = [2, 15, 16, 17, 21, 31]
 
 
@@ -171,8 +173,10 @@ def test_sweep_ties_on_card(cuda_device):
 @pytest.mark.cuda
 def test_each_capture_is_one_warm_up_and_one_capture_span(cuda_device,
                                                           monkeypatch):
-    """A CUDA graph of the sweeps and of NNLS is built as one span
-    ``graph.warm_up`` and one ``graph.capture``; replays open none."""
+    """A CUDA graph of the walk, the sweeps and NNLS is built as one span
+    ``graph.warm_up`` and one ``graph.capture``; replays open none. A
+    loop that ends within its first block captures nothing: a walk whose
+    rounds fit one block, a refinement that converges in one."""
     from km_tpu_torch.ops import nnls
     from km_tpu_torch.utils import profiling
 
@@ -183,29 +187,52 @@ def test_each_capture_is_one_warm_up_and_one_capture_span(cuda_device,
         names.append(name)
         return phase(name)
 
+    def builds():
+        return [x for x in names if x.startswith("graph.")]
+
     monkeypatch.setattr(profiling, "phase", recorded)
+    for insertion, want in ((0, ["graph.warm_up"]),
+                            (30, ["graph.warm_up", "graph.capture"])):
+        rows = batch_walk.device_discover(*branch_walk("cpu", insertion))
+        rounds = batch_walk.device_discover.stats["rounds"]
+        assert (rounds > batch_walk.CHECK_EVERY) == bool(insertion)
+        names.clear()
+        got = batch_walk.device_discover(*branch_walk(cuda_device, insertion))
+        assert got == rows
+        assert batch_walk.device_discover.stats["rounds"] == rounds
+        assert builds() == want
+        assert "walk.sync" in names
+
+    names.clear()
     B, n = 2, 4 * pathgraph.SWEEP_BLOCK
-    ids = torch.full((B, n, 4), -1, dtype=torch.int64, device=cuda_device)
-    ids[:, :-1, 0] = torch.arange(1, n, device=cuda_device)
-    w = torch.ones((B, n, 4), dtype=torch.float32, device=cuda_device)
-    prev = pathgraph.sweep_kernel(ids, w, torch.zeros(
-        B, dtype=torch.int64, device=cuda_device))
+    prev = pathgraph.sweep_kernel(*chain_sweeps(cuda_device, B, n))
     assert prev[0, 1:].tolist() == list(range(n - 1))
-    builds = [x for x in names if x.startswith("graph.")]
-    assert builds == ["graph.warm_up", "graph.capture"]
+    assert builds() == ["graph.warm_up", "graph.capture"]
+
+    def refinement(contrib, coef0):
+        return nnls.Refinement(contrib, contrib.sum(2) * 3, coef0,
+                               torch.full((B,), 6.0, dtype=torch.float64,
+                                          device=cuda_device))
 
     names.clear()
     contrib = torch.rand((B, 6, 2), dtype=torch.float64, device=cuda_device)
-    ref = nnls.Refinement(contrib, contrib.sum(2) * 3,
-                          torch.zeros((B, 2), dtype=torch.float64,
-                                      device=cuda_device),
-                          torch.full((B,), 6.0, dtype=torch.float64,
-                                     device=cuda_device))
+    ref = refinement(contrib, torch.zeros((B, 2), dtype=torch.float64,
+                                          device=cuda_device))
     ref.queue(4)
     ref.finish()
-    builds = [x for x in names if x.startswith("graph.")]
-    assert builds == ["graph.warm_up", "graph.capture"]
+    assert builds() == ["graph.warm_up", "graph.capture"]
     assert "nnls.sync" in names
+
+    names.clear()
+    # started at the solution (counts = contrib @ [3, 3]), the gradient
+    # test passes at once: one block converges and nothing is captured
+    ref = refinement(contrib, torch.full((B, 2), 3.0, dtype=torch.float64,
+                                         device=cuda_device))
+    ref.queue(1)
+    coef, _ = ref.finish()
+    assert ref.iters == nnls.UNROLL
+    assert torch.allclose(coef, torch.full_like(coef, 3.0))
+    assert builds() == ["graph.warm_up"]
 
 
 @pytest.mark.cuda

@@ -1,8 +1,8 @@
 """The port's spans (km_tpu_torch.utils.profiling) on the CPU: the phase
 timer itself, the collector's span, the count's spans in its ``stats``,
-and the catalog's waits on the device inside their phases. A tracer
-that wraps ``profiling.phase``, as the benchmark's catalog driver does,
-sees every span."""
+the catalog's waits on the device inside their phases, and no CUDA-graph
+span from CPU tensors. A tracer that wraps ``profiling.phase``, as the
+benchmark's catalog cells do, sees every span."""
 
 import contextlib
 import gc
@@ -19,6 +19,7 @@ from km_tpu_torch.io.fasta import read_target
 from km_tpu_torch.models.batch import run_catalog
 from km_tpu_torch.models.sequence import TargetSeq
 from km_tpu_torch.models.table import CountTable
+from km_tpu_torch.ops import batch_walk, nnls, pathgraph
 from km_tpu_torch.ops import count as ops_count
 from km_tpu_torch.ops.device_table import DeviceCountTable
 from km_tpu_torch.refdata import DATA_DIR, catalog_dir
@@ -190,3 +191,56 @@ def test_the_catalog_waits_on_the_device_inside_their_phases(spans):
             assert any(a0 <= s0 and s1 <= a1 for _, a0, a1 in around), sync
     assert set(profiling.report()) >= {"walk.sync", "sweeps.sync",
                                        "nnls.sync"}
+
+
+def branch_walk(device, insertion: int):
+    """One target's k-mers and a table of the target and one branch off
+    it, on ``device``: an insertion of ``insertion`` random bases that
+    rejoins the target (walked in about that many rounds), or with 0 a
+    single k-mer that leads nowhere (a walk that ends in its first
+    block of rounds)."""
+    k = 17
+    rng = np.random.default_rng(23)
+    ref = "".join(rng.choice(list("ACGT"), 80))
+    p = 40
+    other = "ACGT".replace(ref[p], "")[0]
+    if insertion:
+        branch = ref[:p] + "".join(rng.choice(list("ACGT"), insertion)) \
+            + ref[p:]
+    else:
+        branch = ref[p - k + 1:p] + other
+    host = CountTable.from_sequences([ref] * 20 + [branch] * 20, k)
+    target = TargetSeq(ref, "branch", k)
+    return [target.ref_mer], DeviceCountTable.from_host(host, device=device)
+
+
+def chain_sweeps(device, B: int, n: int):
+    """``sweep_kernel``'s inputs for B copies of the chain 0 -> 1 -> ...
+    -> n-1 from node 0: every node's predecessor is the node before."""
+    ids = torch.full((B, n, 4), -1, dtype=torch.int64, device=device)
+    ids[:, :-1, 0] = torch.arange(1, n, device=device)
+    w = torch.ones((B, n, 4), dtype=torch.float32, device=device)
+    return ids, w, torch.zeros(B, dtype=torch.int64, device=device)
+
+
+@pytest.mark.parametrize("loop", ["walk", "sweeps", "nnls"])
+def test_cpu_tensors_open_no_graph_span(loop, spans):
+    """The device loops on CPU tensors run eagerly, over several blocks,
+    and open no ``graph.*`` span."""
+    if loop == "walk":
+        batch_walk.device_discover(*branch_walk("cpu", 60))
+        assert batch_walk.device_discover.stats["rounds"] \
+            > 2 * batch_walk.CHECK_EVERY
+    elif loop == "sweeps":
+        n = 3 * pathgraph.SWEEP_BLOCK + 5  # not a whole number of blocks
+        prev = pathgraph.sweep_kernel(*chain_sweeps("cpu", 2, n))
+        assert prev[:, 1:].tolist() == [list(range(n - 1))] * 2
+    else:
+        contrib = torch.rand((2, 6, 2), dtype=torch.float64)
+        ref = nnls.Refinement(contrib, contrib.sum(2) * 3,
+                              torch.zeros((2, 2), dtype=torch.float64),
+                              torch.full((2,), 6.0, dtype=torch.float64))
+        ref.queue(4)
+        ref.finish()
+        assert ref.iters > 2 * nnls.UNROLL
+    assert [s for s in spans if s[0].startswith("graph.")] == []
