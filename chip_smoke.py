@@ -595,6 +595,83 @@ def kernel_cut(device, slots: int = 1 << 26, live: int = 52_690_000,
                     lambda: merge.cut(*acc, min_count, out_k, out_c)))
 
 
+def check_parse(text: bytes, chunk: int, min_quality, device, what: str):
+    """P1 on ``text`` against its plain version: codes, flags and the
+    broken-record flag equal; returns (codes, valid, bad)."""
+    import torch
+
+    from km_tpu_torch.ops import parse
+
+    host = torch.frombuffer(bytearray(text), dtype=torch.uint8)
+    outs = []
+    for fn in (parse.parse_fastq, parse.parse_fastq_plain):
+        bad = torch.zeros(1, dtype=torch.int64, device=device)
+        outs.append((*fn(host.to(device), chunk, min_quality, bad), bad))
+    if not all(torch.equal(a, b) for a, b in zip(*outs)):
+        raise AssertionError("parse_fastq kernel != plain (%s)" % what)
+    return outs[0]
+
+
+def kernel_parse(device, n_bytes: int = 1 << 25, chunk: int = 1 << 24
+                 ) -> dict:
+    """P1 on a 2^25-byte block of 216-byte records (100-bp reads, as the
+    count cells' FASTQ), bit-equal to its plain version there, on the
+    edge cases of scripts/fastq_cases.py (whole, cut short, its last
+    newline dropped) and on broken text; timed against its bytes bound
+    (the text in, a code and a flag out a position) and beside the plain
+    version. No single PyTorch call parses text. P1's scratch is a few
+    words a tile of text, at most 1/256 of the block."""
+    import torch
+
+    from km_tpu_torch import _build
+    from km_tpu_torch.ops import parse
+    from km_tpu_torch.scripts import fastq_cases
+
+    edges = 0
+    for name in fastq_cases.CASES:
+        text = fastq_cases.case_text(name)
+        if not text.endswith(b"\n"):
+            text += b"\n"
+        for q in (None, "+", "5"):
+            for cut in (len(text), len(text) - 1, len(text) // 3):
+                check_parse(text[:cut], 1 << 16, q, device,
+                            "%s Q=%s cut %d" % (name, q, cut))
+                edges += 1
+    for broken in (b"@r\nACGT\n-\nIIII\n", b"@r\nACGT\n+\nIII\n",
+                   b"r\nACGT\n+\nIIII\n", b"@r\nACGT\n+\nIIII\n@r2\n",
+                   b"@r\nACGT\n+\nIIII"):
+        *_, bad = check_parse(broken, 64, None, device, repr(broken))
+        if int(bad) != 1:
+            raise AssertionError("parse_fastq took broken text %r" % broken)
+        edges += 1
+    *_, bad = check_parse(fastq_cases.case_text("acgt"), 64, None, device,
+                          "past the chunk")
+    if int(bad) != 1:
+        raise AssertionError("parse_fastq took text past its chunk")
+    block = fastq_cases.reads_block(n_bytes)
+    scratch = _build.lib().km_parse_fastq_scratch(len(block))
+    if not 0 < scratch <= len(block) // 256:
+        raise AssertionError("parse_fastq scratch of %d bytes for a %d-byte "
+                             "block" % (scratch, len(block)))
+    codes, valid, bad = check_parse(block, chunk, "+", device, "2^25 bytes")
+    reads = len(block) // 216
+    if int(bad) or int(valid.sum()) == 0:
+        raise AssertionError("parse_fastq: the reads block flagged broken")
+    text = torch.frombuffer(bytearray(block), dtype=torch.uint8).to(device)
+    flag = torch.zeros(1, dtype=torch.int64, device=device)
+    ms = cuda_time_ms(lambda: parse.parse_fastq(text, chunk, "+", flag))
+    plain_ms = cuda_time_ms(lambda: parse.parse_fastq_plain(
+        text, chunk, "+", flag), iters=3)
+    bound = bound_ms(len(block) + 2 * chunk)
+    return dict(text_bytes=len(block), scratch_bytes=scratch, reads=reads,
+                positions=reads * (READ_LEN + 1), chunk=chunk,
+                edge_cases=edges, max_abs_err=0.0, ms=ms, plain_ms=plain_ms,
+                bound_ms=bound, bound_by="bytes", share_of_bound=bound / ms,
+                library_ms=None, launches=parse.parse_fastq.launches,
+                kernels_ms=device_times(
+                    lambda: parse.parse_fastq(text, chunk, "+", flag)))
+
+
 # ---------------------------------------------------------------------------
 # the synthetic sample
 
@@ -911,18 +988,21 @@ def phase_catalog_device(device, workdir: str, counted_table: str) -> dict:
 
 # the kernels each path runs; every other kernel must not launch there
 PATH_KERNELS = {
-    "main": ("pack", "sort_runs", "chunk_runs", "merge_accum", "cut"),
+    "main": ("parse_fastq", "pack", "sort_runs", "chunk_runs", "merge_accum",
+             "cut"),
     "chunked": ("pack", "sort_runs", "chunk_runs"),
     "scale_count": ("pack", "sort_runs", "chunk_runs", "merge_accum"),
     "sharded": ("pack", "sort_runs"),
-    "cohort": ("pack", "sort_runs", "chunk_runs", "merge_accum", "cut"),
+    "cohort": ("parse_fastq", "pack", "sort_runs", "chunk_runs",
+               "merge_accum", "cut"),
 }
 
 
 def _counted():
-    from km_tpu_torch.ops import merge, pack, sort_runs
+    from km_tpu_torch.ops import merge, pack, parse, sort_runs
 
-    return {"pack": pack.pack_canonical_windows,
+    return {"parse_fastq": parse.parse_fastq,
+            "pack": pack.pack_canonical_windows,
             "sort_runs": sort_runs.sort_chunks_runs,
             "chunk_runs": merge.chunk_runs,
             "merge_accum": merge.merge_accum,
@@ -1274,15 +1354,15 @@ def phase_cohort(device, workdir: str, fastq: str, counted_table: str
                       r"cohort: (\S+) -> \d+ targets in \S+ \(([\d.]+) s: "
                       r"table ([\d.]+), catalog ([\d.]+), reports ([\d.]+)\)",
                       proc.stderr)}
-    m = re.search(r"done in ([\d.]+)s .*kernel launches: pack (\d+), "
-                  r"sort_runs (\d+), chunk_runs (\d+), merge_accum (\d+), "
-                  r"cut (\d+)", proc.stderr)
+    m = re.search(r"done in ([\d.]+)s .*kernel launches: parse_fastq (\d+), "
+                  r"pack (\d+), sort_runs (\d+), chunk_runs (\d+), "
+                  r"merge_accum (\d+), cut (\d+)", proc.stderr)
     if m is None or len(per_sample) != 3:
         raise AssertionError("cohort's summary lines are missing:\n%s"
                              % proc.stderr[-4000:])
     launches = check_launches(
-        dict(zip(("pack", "sort_runs", "chunk_runs", "merge_accum", "cut"),
-                 map(int, m.groups()[1:]))), "cohort")
+        dict(zip(("parse_fastq", "pack", "sort_runs", "chunk_runs",
+                  "merge_accum", "cut"), map(int, m.groups()[1:]))), "cohort")
     command_s = float(m[1])
 
     files = report_tree(out_dir)
@@ -1413,6 +1493,8 @@ def main(argv=None) -> int:
     kernels["cut"] = kernel_cut(device)
     say("kernel_cut", **kernels["cut"])
     torch.cuda.empty_cache()
+    kernels["parse_fastq"] = kernel_parse(device)
+    say("kernel_parse", **kernels["parse_fastq"])
 
     if opts.kernels_only:
         return 0
@@ -1462,10 +1544,14 @@ def main(argv=None) -> int:
                 "chunk_runs": "km_tpu/ops/count.py:195",
                 "merge_accum": "km_tpu/ops/count.py:369",
                 # a host numpy cut, no device code
-                "cut": "km_tpu/ops/count.py:503"}
+                "cut": "km_tpu/ops/count.py:503",
+                # the host parser, no device code
+                "parse_fastq": "none: km_tpu/native/kmio.cpp km_parse_fastq "
+                               "on the host"}
     sources = {"pack": "pack", "sort_runs": "sort_runs",
                "sort_chunks": "sort_runs", "chunk_runs": "merge_runs",
-               "merge_accum": "merge_runs", "cut": "merge_runs"}
+               "merge_accum": "merge_runs", "cut": "merge_runs",
+               "parse_fastq": "parse_fastq"}
     paths = {"main": launches, "chunked": chunked["launches"],
              "scale_count": scale["launches"], "sharded": sharded["launches"],
              "cohort": cohort["launches"]}

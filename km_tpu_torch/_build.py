@@ -164,6 +164,11 @@ def lib():
         handle.km_cut.argtypes = [vp, vp, vp, i64, i64, vp, vp, vp, vp, i64,
                                   vp]
         handle.km_cut.restype = i32
+        handle.km_parse_fastq_scratch.argtypes = [i64]
+        handle.km_parse_fastq_scratch.restype = i64
+        handle.km_parse_fastq_device.argtypes = [vp, i64, i32, i64, vp, vp, vp,
+                                                 vp, i64, vp]
+        handle.km_parse_fastq_device.restype = i32
         _lib = handle
     return _lib
 

@@ -100,6 +100,12 @@ def _open_binary(path: str):
     return open(path, "rb")
 
 
+def is_fastq(path: str) -> bool:
+    """Whether the file's first byte, after gzip, is a FASTQ header's."""
+    with _open_binary(path) as f:
+        return f.read(1) == b"@"
+
+
 def read_batches(paths, batch_bases: int = 1 << 22,
                  min_quality: str | None = None,
                  prefer_native: bool = True

@@ -6,7 +6,9 @@ count_batches_device_compact). The host half (window_valid,
 count_batches_host, merge_runs, chunk_stream, _coalesce_batches) is the
 port's copy of km_tpu's numpy code, held equal to it by the CPU tests.
 
-Per fixed-size chunk of read bases, uploaded as codes and flags:
+Per fixed-size chunk of read bases, uploaded as codes and flags (or, in
+``count_fastq_device_stream``, as FASTQ text that the card parses):
+  parse_fastq (CUDA kernel, P1)         -> the text's codes and flags
   pack_canonical_windows (CUDA kernel)  -> one int64 key per position
   sort_chunks_runs (CUDA kernel)        -> keys sorted per 2^14-key chunk,
                                            run lengths at run starts
@@ -23,7 +25,10 @@ count is read once the next chunk is parsed, before its upload (whose
 wait covers the kernels anyway). A merge that overflowed C is thrown
 away: the accumulator before it is copied into a pair of the smallest
 doubling of C that holds the keys, and the chunk, still on the host,
-is counted again into it. The input is read once.
+is counted again into it. The input is read once. A FASTQ count on a
+card reads each file into pinned memory in blocks of whole records and
+uploads the text; P1 turns it into the chunk on the card, so the host
+neither parses nor joins (``count_fastq_device_stream``).
 
 Two defects of km_tpu's stream are not reproduced:
 - run totals are exact (differences of an int64 prefix sum, no
@@ -48,6 +53,9 @@ live runs cross).
 
 from __future__ import annotations
 
+import functools
+import gzip
+import itertools
 import time
 
 import numpy as np
@@ -56,9 +64,10 @@ import torch
 from .. import native
 from ..device import SENTINEL, check_k, resolve_device
 from ..utils import profiling
-from . import encode
+from . import encode, parse
 from .merge import chunk_runs, cut, merge_accum, tally
 from .pack import pack_canonical_windows
+from .parse import AT, NEWLINE, PLUS
 from .sort_runs import CHUNK, sort_chunks_runs
 
 # ---------------------------------------------------------------------------
@@ -279,6 +288,91 @@ def _widened(acc, C: int):
     return out
 
 
+def _stream(chunks, k: int, canonical: bool, min_count: int, capacity: int,
+            dev: torch.device, sort_chunk: int, stats, counters=None):
+    """The stream's accumulator loop. ``chunks`` yields callables, each of
+    which puts one chunk's (codes, valid) on ``dev`` (the input, read
+    while the card counts the chunk before it) and is called again by a
+    growth. Returns the keys and counts kept at ``min_count``, and fills
+    ``stats`` as ``count_batches_device_stream`` says.
+
+    Each chunk's live length is read once the next chunk is in, before it
+    goes up: a merge that overflowed C is thrown away, the accumulator
+    before it is copied into a pair of the smallest doubling of C that
+    holds the keys, and the chunk is counted again into it.
+
+    ``counters``, int64 on ``dev``: [0] and [1] take M1's runs and extra
+    bucket rounds, summed over the chunks; a third element, where given,
+    is the input's flag of broken text, read in the same wait (one
+    allocation for all three, so the input's flag adds nothing to the
+    device's peak)."""
+    C = capacity
+    grows = n_chunks = 0
+    # the chunk merges from one accumulator into the other, then they swap
+    acc, spare = empty_accumulator(C, dev), empty_accumulator(C, dev)
+    if counters is None:
+        counters = torch.zeros(2, dtype=torch.int64, device=dev)
+    bad = counters[2:]
+
+    def merge(chunk):
+        nonlocal acc, spare
+        rkeys, rlen = count_chunk_device(*chunk(), k, canonical=canonical,
+                                         sort_chunk=sort_chunk)
+        acc, spare = merge_accum_device(acc, rkeys, rlen, spare,
+                                        sort_chunk=sort_chunk), acc
+
+    def fit(chunk):
+        """Grow if the merge of ``chunk``, the last merged, overflowed C;
+        spare still holds the accumulator that merge read."""
+        nonlocal acc, spare, C, grows
+        if not bad.numel():
+            n = int(acc[2])
+        else:
+            n, broken = torch.cat((acc[2].view(1), bad)).tolist()
+            if broken:
+                raise ValueError("malformed FASTQ record")
+        if n <= C:
+            return
+        with profiling.phase("count.grow"):
+            while C < n:
+                C *= 2
+            acc = _widened(spare, C)
+            spare = None  # freed before its successor is allocated
+            spare = empty_accumulator(C, dev)
+            # the tally holds the chunk's runs already
+            with tally(torch.zeros(2, dtype=torch.int64, device=dev)):
+                merge(chunk)
+        grows += 1
+
+    last = None
+    with tally(counters[:2]):
+        for chunk in chunks:
+            # the last chunk's kernels ran while this one was read, and
+            # its upload would wait for them too
+            if last is not None:
+                fit(last)
+            merge(chunk)
+            last = chunk
+            n_chunks += 1
+        if last is not None:
+            fit(last)
+
+    keys, cnt, kept, total, nu, runs, rounds = cut_readback(
+        acc, spare, min_count, counters[:2])
+    if stats is not None:
+        stats.update(chunks=n_chunks, capacity=C, grows=grows, unique=nu,
+                     total=total, kept=kept, runs=runs, m1_rounds=rounds)
+    return keys, cnt
+
+
+def _check_stream(k: int, chunk: int, capacity: int) -> None:
+    check_k(k)
+    if chunk <= k:
+        raise ValueError("chunk must exceed k")
+    if capacity <= 0:
+        raise ValueError("capacity must be > 0")
+
+
 def count_batches_device_stream(batches, k: int, canonical: bool = True,
                                 min_count: int = 1, chunk: int = 1 << 24,
                                 capacity: int = 1 << 22, device="cuda",
@@ -314,70 +408,215 @@ def count_batches_device_stream(batches, k: int, canonical: bool = True,
     the chunk counted again; absent where none ran), ``count.cut`` (the
     cut on the device and the wait on it) and ``count.readback`` (the
     kept records read back)."""
-    check_k(k)
-    if chunk <= k:
-        raise ValueError("chunk must exceed k")
-    if capacity <= 0:
-        raise ValueError("capacity must be > 0")
+    _check_stream(k, chunk, capacity)
     dev = resolve_device(device)
-    C = capacity
-    grows = n_chunks = 0
     span_s = {} if stats is None else stats.setdefault("span_s", {})
     with profiling.collect(span_s):
-        # the chunk merges from one accumulator into the other, then
-        # they swap
-        acc, spare = empty_accumulator(C, dev), empty_accumulator(C, dev)
-        # M1's runs and extra bucket rounds, summed over the chunks
-        counters = torch.zeros(2, dtype=torch.int64, device=dev)
-
-        def merge(codes, valid):
-            nonlocal acc, spare
-            rkeys, rlen = count_chunk_device(
-                *_upload(codes, valid, dev), k, canonical=canonical,
-                sort_chunk=sort_chunk)
-            acc, spare = merge_accum_device(acc, rkeys, rlen, spare,
-                                            sort_chunk=sort_chunk), acc
-
-        def fit(codes, valid):
-            """Grow if the merge of (codes, valid), the last chunk
-            merged, overflowed C; spare still holds the accumulator that
-            merge read."""
-            nonlocal acc, spare, C, grows
-            n = int(acc[2])
-            if n <= C:
-                return
-            with profiling.phase("count.grow"):
-                while C < n:
-                    C *= 2
-                acc = _widened(spare, C)
-                spare = None  # freed before its successor is allocated
-                spare = empty_accumulator(C, dev)
-                # the tally holds the chunk's runs already
-                with tally(torch.zeros(2, dtype=torch.int64, device=dev)):
-                    merge(codes, valid)
-            grows += 1
-
-        last = None
         chunks = chunk_stream(_coalesce_batches(batches, k, 4 * chunk),
                               chunk, k)
-        with tally(counters):
-            for codes, valid in _input(chunks):
-                # the last chunk's kernels ran while this one was
-                # parsed, and the upload below would wait for them too
-                if last is not None:
-                    fit(*last)
-                merge(codes, valid)
-                last = codes, valid
-                n_chunks += 1
-            if last is not None:
-                fit(*last)
+        return _stream((functools.partial(_upload, codes, valid, dev)
+                        for codes, valid in _input(chunks)),
+                       k, canonical, min_count, capacity, dev, sort_chunk,
+                       stats)
 
-        keys, cnt, kept, total, nu, runs, rounds = cut_readback(
-            acc, spare, min_count, counters)
+
+class _FastqBlocks:
+    """The card path's input: each file, plain or gzip, read with
+    ``readinto`` into one of two host buffers of 2 * chunk bytes (pinned
+    on a card), in blocks of whole records.
+
+    A block ends at its last whole record, found by a scan of the block's
+    tail alone, backwards; the rest is carried to the head of the next
+    block. Every record takes at least twice its positions in bytes, so a
+    block's reads and separators fit one chunk and no read spans two.
+    Files follow each other in the buffers. At a file's end an incomplete
+    last record is dropped, as the host parser drops it, and a last line
+    without a newline gets one (``_file_end``). The last block of the
+    last file is taken whole: the parse checks that it holds whole
+    records.
+
+    Iterating yields, for each block, a callable that uploads the block
+    without blocking (span ``count.upload``; an event marks the copy's
+    end) and parses it into a chunk; a growth calls it again, while the
+    block's buffer is intact: a buffer is refilled two blocks later,
+    after its last upload's event. Each step's read is the span
+    ``count.read``."""
+
+    def __init__(self, paths, chunk: int, min_quality, dev: torch.device,
+                 bad: torch.Tensor):
+        self.chunk, self.min_quality, self.dev, self.bad = (
+            chunk, min_quality, dev, bad)
+        self._paths = iter(paths)
+        self._file = None  # the file being read
+        self._done = False  # every file read to its end
+        cuda = dev.type == "cuda"
+        self.bufs = [torch.empty(2 * chunk, dtype=torch.uint8,
+                                 pin_memory=cuda) for _ in range(2)]
+        self.uploaded = [None, None]  # the event after a buffer's upload
+        self.input_bytes = self.parsed_bytes = 0
+
+    def __iter__(self):
+        tail = None  # (array, start, end) carried over
+        try:
+            for i in itertools.count():
+                b = i % 2
+                with profiling.phase("count.read"):
+                    a, cut, end = self._read(b, tail)
+                    tail = (a, cut, end)
+                if cut:
+                    yield self._source(b, cut)
+                if self._done:
+                    return
+        finally:
+            if self._file is not None:
+                self._file.close()
+
+    def _read(self, b: int, tail):
+        """Fill buffer b: the tail carried over, then the files' text up
+        to the buffer's end or the last file's. Returns (its array, the
+        end of its last whole record, the end of its text)."""
+        if self.uploaded[b] is not None:
+            self.uploaded[b].synchronize()
+        a = self.bufs[b].numpy()
+        end = 0
+        if tail is not None:
+            src, lo, hi = tail
+            a[:hi - lo] = src[lo:hi]
+            end = hi - lo
+        view = memoryview(a)
+        while end < len(a) and not self._done:
+            if self._file is None:
+                path = next(self._paths, None)
+                if path is None:
+                    self._done = True
+                    break
+                self._file = _open_fastq(path)
+            got = self._file.readinto(view[end:])
+            if got:
+                end += got
+                self.input_bytes += got
+                continue
+            self._file.close()
+            self._file = None
+            end = _file_end(a, end)  # got 0, so end < len(a)
+        cut = end if self._done else _last_record_end(a, end)
+        if cut == 0 and end:
+            raise ValueError(
+                "a FASTQ record longer than the %d-byte block: the card "
+                "counts reads of at most %d bases, fewer by half the length "
+                "of the header and '+' lines" % (len(a), self.chunk - 3))
+        return a, cut, end
+
+    def _source(self, b: int, n: int):
+        parsed = False
+
+        def chunk():
+            nonlocal parsed
+            with profiling.phase("count.upload"):
+                text = self.bufs[b][:n]
+                if self.dev.type == "cuda":
+                    text = text.to(self.dev, non_blocking=True)
+                    self.uploaded[b] = torch.cuda.Event()
+                    self.uploaded[b].record()
+            if not parsed:
+                parsed = True
+                self.parsed_bytes += n
+            return parse.parse_fastq(text, self.chunk, self.min_quality,
+                                     self.bad)
+        return chunk
+
+
+def _open_fastq(path: str):
+    """A file for ``readinto``: gzip through its decompressor, a plain
+    file unbuffered."""
+    if path.endswith(".gz"):
+        return gzip.open(path, "rb")
+    return open(path, "rb", buffering=0)
+
+
+def _file_end(a: np.ndarray, n: int) -> int:
+    """The end of a file's text a[:n], which starts at a record, as the
+    card parses it: an incomplete last record is dropped, as
+    native/kmio.cpp's ``km_parse_fastq`` drops it (a line starting '@'
+    followed by fewer than three newlines, or by a quality line shorter
+    than its read), and a last line without a newline gets one at a[n],
+    which the caller keeps free. Anything else after the last whole
+    record stays, for the parse to find broken."""
+    cut = _last_record_end(a, n)
+    rest = a[cut:n]
+    if len(rest) and rest[0] == AT:
+        ends = np.flatnonzero(rest == NEWLINE)[:3]
+        if len(ends) < 3 or len(rest) - ends[2] - 1 < ends[1] - ends[0] - 1:
+            return cut
+    if n and a[n - 1] != NEWLINE:
+        a[n] = NEWLINE
+        n += 1
+    return n
+
+
+def _last_record_end(a: np.ndarray, n: int) -> int:
+    """The end of the last whole FASTQ record of a[:n], which starts at a
+    record, or 0 where none ends there. Only the tail is scanned, from
+    the end, until nine newlines are seen: a record starts at a line
+    starting '@' whose third line starts '+' and whose second and fourth
+    lines are of one length, and the last whole record starts at one of
+    the four line starts before the last four newlines."""
+    w = 4096
+    while True:
+        lo = max(0, n - w)
+        ends = np.flatnonzero(a[lo:n] == NEWLINE) + lo
+        if lo == 0:
+            ends = np.concatenate(([-1], ends))  # the block starts a record
+        for j in range(len(ends) - 5, -1, -1):
+            e = ends[j + 1:j + 5]
+            if a[ends[j] + 1] == AT and a[e[1] + 1] == PLUS \
+                    and e[1] - e[0] == e[3] - e[2]:
+                return int(e[3]) + 1
+        if lo == 0:
+            return 0
+        if len(ends) >= 9:
+            raise ValueError("malformed FASTQ record")
+        w *= 4
+
+
+def count_fastq_device_stream(paths, k: int, canonical: bool = True,
+                              min_count: int = 1, min_quality=None,
+                              chunk: int = 1 << 24, capacity: int = 1 << 22,
+                              device="cuda", sort_chunk: int = CHUNK,
+                              stats=None):
+    """FASTQ files -> (keys uint64, counts uint32), parsed on the device:
+    the stream's accumulator loop (``count_batches_device_stream``'s,
+    with its growths and its cut) fed by ``_FastqBlocks``, whose text P1
+    (``ops/parse.py::parse_fastq``) turns into each chunk's codes and
+    flags. The host reads the files into pinned memory and finds where
+    each block's last record ends; nothing else of the text passes
+    through it. On CPU tensors the plain parse runs in the kernel's place.
+
+    Equal to ``count_batches_device_stream(read_batches(paths, ...))``
+    where every file is FASTQ records: an incomplete last record of a
+    file is dropped, as the host parser drops it, and a broken record
+    raises ``ValueError``, as the host parser does for a record that does
+    not start with '@'. Stricter than the host parser: a third line must
+    start with '+' and a quality line must end at its read's length.
+
+    ``stats`` receives what ``count_batches_device_stream`` gives, less
+    the span ``count.input`` and plus ``count.read`` (a block read into
+    its buffer, its end found), ``input_bytes`` (bytes of text read) and
+    ``card_parsed_bytes`` (bytes of text P1 received, each block once: a
+    growth's second parse is not counted; a dropped last record is not
+    and a newline added at a file's end is)."""
+    _check_stream(k, chunk, capacity)
+    dev = resolve_device(device)
+    span_s = {} if stats is None else stats.setdefault("span_s", {})
+    with profiling.collect(span_s):
+        counters = torch.zeros(3, dtype=torch.int64, device=dev)
+        blocks = _FastqBlocks(paths, chunk, min_quality, dev, counters[2:])
+        out = _stream(blocks, k, canonical, min_count, capacity, dev,
+                      sort_chunk, stats, counters=counters)
     if stats is not None:
-        stats.update(chunks=n_chunks, capacity=C, grows=grows, unique=nu,
-                     total=total, kept=kept, runs=runs, m1_rounds=rounds)
-    return keys, cnt
+        stats.update(input_bytes=blocks.input_bytes,
+                     card_parsed_bytes=blocks.parsed_bytes)
+    return out
 
 
 def chunk_runs_device(codes: torch.Tensor, valid: torch.Tensor, k: int,

@@ -40,7 +40,7 @@ from ..models.batch import run_catalog
 from ..models.quant import PathRow
 from ..models.sequence import TargetSeq
 from ..models.table import CountTable
-from ..ops import merge, pack, sort_runs
+from ..ops import merge, pack, parse, sort_runs
 from ..parallel import distributed
 from .batchmode import prepare_table
 from .count import count_read_files
@@ -80,8 +80,9 @@ def main_cohort(args, argparser):
     reports); the last line also gives the launches of the counting
     kernels in this command."""
     t0 = time.time()
-    counters = (pack.pack_canonical_windows, sort_runs.sort_chunks_runs,
-                merge.chunk_runs, merge.merge_accum, merge.cut)
+    counters = (parse.parse_fastq, pack.pack_canonical_windows,
+                sort_runs.sort_chunks_runs, merge.chunk_runs,
+                merge.merge_accum, merge.cut)
     launches0 = [fn.launches for fn in counters]
     targets, paths = [], []
     for seq_f in expand_target_files([args.targets]):
@@ -122,8 +123,8 @@ def main_cohort(args, argparser):
     if not my_samples:
         sys.stderr.write("cohort: no samples for process %d\n" % rank)
     sys.stderr.write("cohort: done in %.3fs (%d sample(s) on process %d/%d; "
-                     "kernel launches: pack %d, sort_runs %d, chunk_runs %d, "
-                     "merge_accum %d, cut %d)\n"
+                     "kernel launches: parse_fastq %d, pack %d, sort_runs %d, "
+                     "chunk_runs %d, merge_accum %d, cut %d)\n"
                      % (time.time() - t0, len(my_samples), rank, n_procs,
                         *(fn.launches - n0
                           for fn, n0 in zip(counters, launches0))))

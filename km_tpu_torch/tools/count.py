@@ -15,6 +15,11 @@ runs back and k-way-merges them on the host at the end, so it has no
 capacity, but holds every run in host memory until the merge. Both read
 the files once. ``--device host`` ignores it.
 
+Where the stream runs on a card in one process and every file is FASTQ,
+the text itself goes up and the card parses it (P1,
+``ops.count.count_fastq_device_stream``); FASTA, CPU tensors, the
+chunked mode and the sharded count keep the host's native parser.
+
 Under torchrun with more than one process (``python -m
 torch.distributed.run --nproc_per_node=N -m km_tpu_torch count ...``),
 every process reads the same files and counts every N-th chunk on its own
@@ -34,10 +39,11 @@ import time
 import torch.distributed as dist
 
 from ..device import resolve_device
-from ..io.fastq import read_batches
+from ..io.fastq import is_fastq, read_batches
 from ..models.table import CountTable
 from ..ops.count import (count_batches_device_compact,
-                         count_batches_device_stream, count_batches_host)
+                         count_batches_device_stream, count_batches_host,
+                         count_fastq_device_stream)
 from ..parallel import distributed
 
 # bases per uploaded chunk; the CPU runs the plain versions, where a
@@ -62,7 +68,11 @@ def count_read_files(paths, k: int, canonical: bool = True,
 
     In stream mode the accumulator starts at 2^22 slots, as km_tpu's
     does, and doubles on the device as the keys need (ops.count's
-    growth), so the files are read once. ``stats``, a dict, receives the
+    growth), so the files are read once. On a card, without a process
+    group, FASTQ files are parsed there (``count_fastq_device_stream``:
+    the host reads the text into pinned memory, P1 parses it); FASTA,
+    CPU tensors, the chunked mode and the sharded count parse on the
+    host. ``stats``, a dict, receives the
     counter's numbers (capacity, grows, unique, kept, M1's ``runs`` and
     ``m1_rounds``, its spans under ``span_s``, ...) and, for the stream,
     ``retries``: the times the files were read again, 0.
@@ -88,10 +98,16 @@ def count_read_files(paths, k: int, canonical: bool = True,
         return count_batches_device_compact(
             batches, k, canonical=canonical, min_count=min_count,
             chunk=CHUNK[dev.type], device=dev, stats=stats)
-    out = count_batches_device_stream(
-        batches, k, canonical=canonical, min_count=min_count,
-        chunk=CHUNK[dev.type], capacity=START_CAPACITY, device=dev,
-        stats=stats)
+    if dev.type == "cuda" and all(is_fastq(p) for p in paths):
+        out = count_fastq_device_stream(
+            paths, k, canonical=canonical, min_count=min_count,
+            min_quality=min_quality, chunk=CHUNK[dev.type],
+            capacity=START_CAPACITY, device=dev, stats=stats)
+    else:
+        out = count_batches_device_stream(
+            batches, k, canonical=canonical, min_count=min_count,
+            chunk=CHUNK[dev.type], capacity=START_CAPACITY, device=dev,
+            stats=stats)
     if stats is not None:
         stats["retries"] = 0
     return out

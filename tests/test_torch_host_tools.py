@@ -347,4 +347,5 @@ def test_packaging_names_the_new_subpackages_and_sources():
                for pattern in tool["package-data"]["km_tpu_torch"]
                for p in glob.glob(os.path.join(REPO, "km_tpu_torch", pattern))]
     assert sorted(shipped) == ["csrc/merge_runs.cu", "csrc/pack.cu",
-                               "csrc/sort_runs.cu", "native/kmio.cpp"]
+                               "csrc/parse_fastq.cu", "csrc/sort_runs.cu",
+                               "native/kmio.cpp"]

@@ -489,3 +489,107 @@ def test_a_grown_stream_peaks_no_higher_than_its_final_capacity(
     hk, hc = count_batches_host(iter(batches), 21, min_count=2)
     np.testing.assert_array_equal(gk, hk)
     np.testing.assert_array_equal(gc, hc)
+
+
+def _parse_both(text: bytes, chunk: int, min_quality, device):
+    """P1 and its plain version on ``text`` on the card: (codes, valid,
+    bad) of each."""
+    from km_tpu_torch.ops import parse
+
+    out = []
+    for fn in (parse.parse_fastq, parse.parse_fastq_plain):
+        t = torch.tensor(list(text), dtype=torch.uint8).to(device)
+        bad = torch.zeros(1, dtype=torch.int64, device=device)
+        out.append((*fn(t, chunk, min_quality, bad), bad))
+    return out
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("min_quality", [None, "+"])
+@pytest.mark.parametrize("case", ["acgt", "n_iupac_lower", "low_quality",
+                                  "quality_at", "crlf", "no_final_newline",
+                                  "empty_reads", "long_read", "reads_block",
+                                  "broken"])
+def test_parse_fastq_kernel_matches_plain(cuda_device, case, min_quality):
+    """P1 bit-equal to its plain version, broken-record flag included, on
+    the edge cases (the text whole and cut mid-record) and on a block of
+    216-byte records larger than one tile of the kernel's scans."""
+    from km_tpu_torch.ops import parse
+    from km_tpu_torch.scripts.fastq_cases import (CASES, case_text,
+                                                  reads_block)
+
+    if case == "reads_block":
+        text = reads_block(3 << 20, seed=4)
+    elif case == "broken":
+        text = b"@a\nACGT\n+\nIIII\n@b\nACGT\nx\nIIII\n"
+    else:
+        assert case in CASES
+        text = case_text(case)
+        if not text.endswith(b"\n"):
+            text += b"\n"
+    from km_tpu_torch import _build
+
+    # a few words a tile of 8,192 bytes, nothing a line or a record
+    assert _build.lib().km_parse_fastq_scratch(len(text)) <= 1024 + 32 * (
+        len(text) // 8192 + 1)
+    launches = parse.parse_fastq.launches
+    for cut in (len(text), len(text) * 2 // 3):
+        chunk = max(64, cut // 2 + 16)
+        (kc, kv, kb), (pc, pv, pb) = _parse_both(text[:cut], chunk,
+                                                 min_quality, cuda_device)
+        assert torch.equal(kc, pc) and torch.equal(kv, pv)
+        assert int(kb) == int(pb) == (cut < len(text) or case == "broken")
+    assert parse.parse_fastq.launches == launches + 2
+
+
+def _fastq_file(path, seed: int) -> str:
+    from km_tpu_torch.scripts.fastq_cases import reads_block, records
+
+    text = reads_block(3 << 24, seed=seed) + records(
+        seed=seed, n=5000, lengths=(20, 150), alphabet="ACGTNacgt")
+    with open(path, "wb") as f:
+        f.write(text)
+    return str(path)
+
+
+@pytest.mark.cuda
+def test_count_read_files_parses_fastq_on_the_card(cuda_device, tmp_path):
+    """``count`` of a 48 MB FASTQ (two blocks) on the card takes the card
+    path and gives the table the host parser's stream gives; its device
+    peak is no higher."""
+    from km_tpu_torch.io.fastq import read_batches
+    from km_tpu_torch.ops import parse
+    from km_tpu_torch.tools import count as tools_count
+
+    path = _fastq_file(tmp_path / "a.fq", seed=5)
+
+    def run(card: bool):
+        torch.cuda.synchronize(cuda_device)
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats(cuda_device)
+        stats = {}
+        if card:
+            out = tools_count.count_read_files(
+                [path], 31, min_count=2, min_quality="+", device="cuda",
+                stats=stats, mode="stream")
+        else:
+            out = count.count_batches_device_stream(
+                read_batches([path], min_quality="+"), 31, min_count=2,
+                chunk=tools_count.CHUNK["cuda"],
+                capacity=tools_count.START_CAPACITY, device=cuda_device,
+                stats=stats)
+        torch.cuda.synchronize(cuda_device)
+        return out, stats, torch.cuda.max_memory_allocated(cuda_device)
+
+    launches = parse.parse_fastq.launches
+    (ck, cc), card, card_peak = run(True)
+    assert parse.parse_fastq.launches - launches == card["chunks"] \
+        + card["grows"] >= 2
+    assert card["input_bytes"] == card["card_parsed_bytes"] \
+        == os.path.getsize(path)
+    (hk, hc), host, host_peak = run(False)
+    assert "input_bytes" not in host
+    np.testing.assert_array_equal(ck, hk)
+    np.testing.assert_array_equal(cc, hc)
+    assert card["total"] == host["total"] and card["unique"] == host["unique"]
+    assert card_peak <= host_peak
