@@ -27,8 +27,9 @@ the NNLS refinement on the card), then ``find_report``, each timed
 beside the port's host path (``--device host``). Then a 400-target
 catalog on the card against the host path, warm through ``run_catalog``
 and cold through the CLI (table load and upload included). Then the
-entry points for counting and walking at scale: ``count --mode chunked``
-through the CLI on the sample's first 2^28 bases (its table equal to
+entry points for counting and walking at scale: ``count --mode chunked
+-s 2^24`` through the CLI on the sample's first 2^28 bases (jellyfish's
+``--disk`` count: the accumulator capped and dumped; its table equal to
 ``--mode stream``'s), ``scripts.scale_count`` (2^30 bases synthesized and
 counted on the card, every window accounted for) and
 ``scripts.bigtable_walk`` (the 400-target catalog against the fixture
@@ -990,7 +991,8 @@ def phase_catalog_device(device, workdir: str, counted_table: str) -> dict:
 PATH_KERNELS = {
     "main": ("parse_fastq", "pack", "sort_runs", "chunk_runs", "merge_accum",
              "cut"),
-    "chunked": ("pack", "sort_runs", "chunk_runs"),
+    "chunked": ("parse_fastq", "pack", "sort_runs", "chunk_runs",
+                "merge_accum", "cut"),
     "scale_count": ("pack", "sort_runs", "chunk_runs", "merge_accum"),
     "sharded": ("pack", "sort_runs"),
     "cohort": ("parse_fastq", "pack", "sort_runs", "chunk_runs",
@@ -1034,10 +1036,15 @@ def peak_rss_mb() -> float:
 
 
 def phase_count_chunked(device, workdir: str, fastq: str) -> dict:
-    """``count --mode chunked`` through the CLI on the sample's first
-    2^28 read bases (whole reads, cut from the FASTQ by its fixed record
-    width), against ``--mode stream`` on the same file: equal keys and
-    counts in the two table files. One launch of each kernel per chunk."""
+    """``count --mode chunked -s 2^24`` (jellyfish's ``--disk`` count)
+    through the CLI on the sample's first 2^28 read bases (whole reads,
+    cut from the FASTQ by its fixed record width), against ``--mode
+    stream`` on the same file: equal keys and counts in the two table
+    files. The ceiling of 2^24 slots is below the prefix's ~2.6e7 keys,
+    so the accumulator dumps (a smaller ``--log2-bases`` may hold them
+    all, and then need not); each chunk, and each chunk counted again by
+    a growth or a dump, is one launch of P1, K1, K2, M1 and M2, and the
+    cut runs once for each dump and once at the end."""
     from km_tpu_torch.models.table import CountTable
 
     n_reads = min(SHARDED_BASES // READ_LEN,
@@ -1055,8 +1062,8 @@ def phase_count_chunked(device, workdir: str, fastq: str) -> dict:
               for mode in ("chunked", "stream")}
     rss_before = peak_rss_mb()
     reset_launches()
-    _, chunked = run_cli(argv + ["--mode", "chunked", "-o", tables["chunked"],
-                                 prefix])
+    _, chunked = run_cli(argv + ["--mode", "chunked", "-s", str(1 << 24),
+                                 "-o", tables["chunked"], prefix])
     launches = check_launches(kernel_launches(), "chunked")
     rss_after = peak_rss_mb()
     _, stream = run_cli(argv + ["--mode", "stream", "-o", tables["stream"],
@@ -1073,19 +1080,31 @@ def phase_count_chunked(device, workdir: str, fastq: str) -> dict:
     if chunked["total"] != windows:
         raise AssertionError("chunked counts sum to %d, expected %d windows"
                              % (chunked["total"], windows))
-    if not (launches["pack"] == launches["sort_runs"]
-            == launches["chunk_runs"] == chunked["chunks"]
-            == chunked["pack_launches"] == chunked["sort_runs_launches"]):
-        raise AssertionError("chunked: launches %s for %d chunks"
-                             % (launches, chunked["chunks"]))
+    # more keys than the ceiling holds must have dumped (at the full
+    # sample's 2^28 bases they are ~2.6e7)
+    if chunked["ceiling"] != 1 << 24 or (
+            chunked["unique"] > chunked["ceiling"] and not chunked["dumps"]):
+        raise AssertionError("chunked: %d keys under a ceiling of %d slots "
+                             "and %d dumps" % (chunked["unique"],
+                                               chunked["ceiling"],
+                                               chunked["dumps"]))
+    counted = chunked["chunks"] + chunked["grows"] + chunked["dumps"]
+    if not (launches["parse_fastq"] == launches["pack"]
+            == launches["sort_runs"] == launches["chunk_runs"]
+            == launches["merge_accum"] == counted
+            and launches["cut"] == chunked["dumps"] + 1):
+        raise AssertionError("chunked: launches %s for %d chunks, %d "
+                             "growths and %d dumps"
+                             % (launches, chunked["chunks"],
+                                chunked["grows"], chunked["dumps"]))
     return dict(reads=n_reads, bases=n_reads * READ_LEN,
                 distinct=chunked["distinct"], chunks=chunked["chunks"],
                 chunked_s=chunked["seconds"], stream_s=stream["seconds"],
                 stream_retries=stream["retries"],
                 kmers_per_s=windows / chunked["seconds"],
-                runs=chunked["runs"],
-                readback_bytes=chunked["readback_bytes"],
-                span_s=chunked["span_s"], merge_s=chunked["merge_s"],
+                runs=chunked["runs"], ceiling=chunked["ceiling"],
+                dumps=chunked["dumps"], dumped=chunked["dumped"],
+                grows=chunked["grows"], span_s=chunked["span_s"],
                 stream_span_s=stream["span_s"],
                 peak_rss_mb_before=rss_before, peak_rss_mb_after=rss_after,
                 launches=launches)

@@ -108,7 +108,7 @@ def build_native() -> float:
     os.makedirs(BUILD_DIR, exist_ok=True)
     tmp = NATIVE_LIB_PATH + ".tmp.%d" % os.getpid()
     cmd = [cxx, "-O3", "-march=native", "-std=c++17", "-fPIC", "-Wall",
-           "-shared", "-o", tmp, NATIVE_SRC]
+           "-pthread", "-shared", "-o", tmp, NATIVE_SRC]
     t0 = time.perf_counter()
     try:
         proc = subprocess.run(cmd, capture_output=True, text=True,

@@ -4,7 +4,8 @@ km_tpu/argparsing/schemas.py, with ``--device``).
 The port's own choice is ``--device``: 'cuda' (the default) runs on the
 card, 'cpu' runs the port's plain torch versions on CPU tensors, 'host'
 runs the numpy spec. ``--mode`` of ``count`` (and of ``cohort``, for the
-samples it counts) has km_tpu's choices and default.
+samples it counts) has km_tpu's choices and default; ``count -s/--size``
+(jellyfish's hash size, the chunked mode's ceiling) is the port's too.
 
 Defaults are the de-facto algorithm spec shared with km: count 5,
 ratio 0.05, steps 500, branchs 10, nodes 10000
@@ -133,9 +134,11 @@ def add_mode_arg(parser):
     parser.add_argument(
         "--mode", choices=["auto", "stream", "chunked"], default="auto",
         help="Device counting strategy: 'stream' keeps one accumulator "
-             "on-device (single readback), 'chunked' reads back "
-             "per-chunk runs and k-way-merges them natively on the "
-             "host; 'auto' picks per backend")
+             "on-device, grown as the keys need (single readback); "
+             "'chunked' is jellyfish's --disk count: the accumulator "
+             "grows no further than --size slots, a full one is dumped "
+             "to the host as a sorted piece and the pieces are merged "
+             "and cut there at the end; 'auto' is 'stream'")
 
 
 def add_count_args(parser):
@@ -159,6 +162,12 @@ def add_count_args(parser):
              "binary/sorted layout)")
     add_device_arg(parser, "counting")
     add_mode_arg(parser)
+    parser.add_argument(
+        "-s", "--size", type=int, default=None,
+        help="--mode chunked: the accumulator's ceiling in slots, like "
+             "jellyfish count -s (rounded up to a power of two, at least "
+             "the chunk: 2^24 bases on cuda, 2^20 on cpu); default: what "
+             "the device's free memory holds. The stream ignores it")
     parser.add_argument(
         "reads_fn", nargs="+",
         help="FASTQ/FASTA read files (optionally .gz)")

@@ -53,6 +53,12 @@ def _load():
         ctypes.POINTER(ctypes.c_uint64), ctypes.POINTER(ctypes.c_int64),
         ctypes.POINTER(ctypes.c_int64), ctypes.c_long,
         ctypes.POINTER(ctypes.c_uint64), ctypes.POINTER(ctypes.c_int64)]
+    lib.km_merge_pieces.restype = ctypes.c_long
+    lib.km_merge_pieces.argtypes = [
+        ctypes.POINTER(ctypes.c_void_p), ctypes.POINTER(ctypes.c_void_p),
+        ctypes.POINTER(ctypes.c_int64), ctypes.c_long, ctypes.c_int64,
+        ctypes.POINTER(ctypes.c_uint64), ctypes.POINTER(ctypes.c_uint32),
+        ctypes.POINTER(ctypes.c_int64)]
     lib.km_dijkstra_scanmin.restype = None
     lib.km_dijkstra_scanmin.argtypes = [
         ctypes.POINTER(ctypes.c_int64), ctypes.POINTER(ctypes.c_int64),
@@ -133,6 +139,40 @@ def merge_sorted_runs(runs) -> tuple[np.ndarray, np.ndarray]:
         out_keys.ctypes.data_as(ctypes.POINTER(ctypes.c_uint64)),
         out_counts.ctypes.data_as(ctypes.POINTER(ctypes.c_int64)))
     return out_keys[:m].copy(), out_counts[:m].copy()
+
+
+def merge_pieces(pieces, min_count: int
+                 ) -> tuple[np.ndarray, np.ndarray, int]:
+    """K-way merge of sorted pieces of distinct keys, (keys uint64,
+    counts uint32) each, with the counts of equal keys summed and cut at
+    ``min_count`` on the merged sums: (kept keys uint64, their counts
+    uint32, the number of distinct keys). The pieces are read where they
+    lie; the outputs are sized for every record and shrunk to the kept
+    ones, so memory holds the pieces and what is kept."""
+    lib = require()
+    pieces = [(np.ascontiguousarray(k, dtype=np.uint64),
+               np.ascontiguousarray(c, dtype=np.uint32)) for k, c in pieces]
+    s = len(pieces)
+    key_ptrs = (ctypes.c_void_p * max(s, 1))(
+        *[k.ctypes.data for k, _ in pieces])
+    count_ptrs = (ctypes.c_void_p * max(s, 1))(
+        *[c.ctypes.data for _, c in pieces])
+    lens = np.array([len(k) for k, _ in pieces] or [0], dtype=np.int64)
+    total = int(lens.sum())
+    out_keys = np.empty(total, dtype=np.uint64)
+    out_counts = np.empty(total, dtype=np.uint32)
+    unique = ctypes.c_int64(0)
+    kept = lib.km_merge_pieces(
+        key_ptrs, count_ptrs,
+        lens.ctypes.data_as(ctypes.POINTER(ctypes.c_int64)), s, min_count,
+        out_keys.ctypes.data_as(ctypes.POINTER(ctypes.c_uint64)),
+        out_counts.ctypes.data_as(ctypes.POINTER(ctypes.c_uint32)),
+        ctypes.byref(unique))
+    # shrunk in place: the tail the threads wrote before the kept records
+    # were moved together is given back
+    out_keys.resize(kept, refcheck=False)
+    out_counts.resize(kept, refcheck=False)
+    return out_keys, out_counts, unique.value
 
 
 def dijkstra_scanmin(ptr: np.ndarray, ids: np.ndarray, w: np.ndarray,

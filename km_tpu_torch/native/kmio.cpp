@@ -1,5 +1,6 @@
 // kmio.cpp — native host-side IO for km_tpu_torch (km_tpu/native/kmio.cpp's
-// functions, unchanged).
+// functions, unchanged, and the port's own km_merge_pieces, the chunked
+// count's host merge).
 //
 // The throughput-critical feed of the counting pipeline: FASTQ/FASTA text
 // -> 2-bit base codes + validity mask, ready for the device pack/sort
@@ -21,6 +22,7 @@
 #include <cstdint>
 #include <cstring>
 #include <limits>
+#include <thread>
 #include <vector>
 
 namespace {
@@ -243,6 +245,95 @@ long km_merge_runs(const uint64_t* keys, const int64_t* counts,
     }
   }
   return out + 1;
+}
+
+// The end of a capped stream count (jellyfish's --disk merge): s sorted
+// pieces of distinct keys, piece r at keys[r]/counts[r] with lens[r]
+// records, merged with the counts of equal keys summed in 64 bits. The
+// keys whose sum reaches min_count go to out_keys/out_counts (the sum's
+// low 32 bits) in key order; *unique gets the number of distinct keys.
+// The key range is split at quantiles of the largest piece into one
+// range a thread (up to 8, fewer for small inputs); each thread merges
+// its slices of the pieces into the outputs at the offset of their first
+// records, taking the least of the pieces' heads by a scan of them, and
+// the kept records are then moved together. Returns the number kept.
+long km_merge_pieces(const uint64_t* const* keys,
+                     const uint32_t* const* counts, const int64_t* lens,
+                     long s, int64_t min_count, uint64_t* out_keys,
+                     uint32_t* out_counts, int64_t* unique) {
+  int64_t total = 0;
+  long big = 0;
+  for (long r = 0; r < s; r++) {
+    total += lens[r];
+    if (lens[r] > lens[big]) big = r;
+  }
+  const long hw = std::max(1u, std::thread::hardware_concurrency());
+  const long n_threads =
+      std::min({8L, hw, std::max(1L, static_cast<long>(total >> 20))});
+  // bounds[t * s + r]: the first record of piece r in range t
+  std::vector<int64_t> bounds((n_threads + 1) * s);
+  for (long r = 0; r < s; r++) {
+    bounds[r] = 0;
+    bounds[n_threads * s + r] = lens[r];
+  }
+  for (long t = 1; t < n_threads; t++) {
+    const uint64_t split = keys[big][lens[big] * t / n_threads];
+    for (long r = 0; r < s; r++)
+      bounds[t * s + r] =
+          std::lower_bound(keys[r], keys[r] + lens[r], split) - keys[r];
+  }
+  std::vector<int64_t> base(n_threads, 0), kept(n_threads), distinct(
+                                                                n_threads);
+  auto merge = [&](long t) {
+    const uint64_t kEnd = std::numeric_limits<uint64_t>::max();
+    std::vector<int64_t> cur(bounds.begin() + t * s,
+                             bounds.begin() + (t + 1) * s);
+    const int64_t* end = bounds.data() + (t + 1) * s;
+    std::vector<uint64_t> head(s);
+    for (long r = 0; r < s; r++)
+      head[r] = cur[r] < end[r] ? keys[r][cur[r]] : kEnd;
+    uint64_t* ok = out_keys + base[t];
+    uint32_t* oc = out_counts + base[t];
+    int64_t n_kept = 0, n_distinct = 0;
+    for (;;) {
+      uint64_t key = kEnd;
+      for (long r = 0; r < s; r++) key = std::min(key, head[r]);
+      if (key == kEnd) break;  // real keys lie below 2^62
+      int64_t sum = 0;
+      for (long r = 0; r < s; r++) {
+        if (head[r] == key) {
+          sum += counts[r][cur[r]++];
+          head[r] = cur[r] < end[r] ? keys[r][cur[r]] : kEnd;
+        }
+      }
+      n_distinct++;
+      if (sum >= min_count) {
+        ok[n_kept] = key;
+        oc[n_kept] = static_cast<uint32_t>(sum);
+        n_kept++;
+      }
+    }
+    kept[t] = n_kept;
+    distinct[t] = n_distinct;
+  };
+  std::vector<std::thread> threads;
+  for (long t = 0; t < n_threads; t++) {
+    for (long r = 0; r < s; r++) base[t] += bounds[t * s + r];
+    if (t) threads.emplace_back(merge, t);
+  }
+  merge(0);
+  for (auto& th : threads) th.join();
+  int64_t at = 0;
+  *unique = 0;
+  for (long t = 0; t < n_threads; t++) {
+    // at <= base[t]: each range keeps at most its records
+    memmove(out_keys + at, out_keys + base[t], kept[t] * sizeof(uint64_t));
+    memmove(out_counts + at, out_counts + base[t],
+            kept[t] * sizeof(uint32_t));
+    at += kept[t];
+    *unique += distinct[t];
+  }
+  return at;
 }
 
 // Scan-min Dijkstra over a CSR digraph — the host-side inner loop of

@@ -38,10 +38,14 @@ Two defects of km_tpu's stream are not reproduced:
   no new key (km_tpu checks only the last and returns a truncated
   table).
 
-``count_batches_device_compact`` (``count --mode chunked``) keeps no
-accumulator on the device: each chunk's runs are summed there, read back
-and merged on the host, so there is no capacity to size and the input is
-never read twice.
+``count_batches_device_compact`` (``count --mode chunked``, jellyfish's
+``--disk`` count) runs the same loop under a ceiling: the accumulator
+grows up to it, and a merge that overflows it is dumped instead. The
+accumulator before that merge is read back as one sorted piece, the pair
+is emptied and the chunk counted again into it; at the end the last
+accumulator is read back too, and the pieces are merged on the host,
+where the ``min_count`` cut is made on the merged counts. Host memory
+holds the pieces, not every chunk's runs.
 
 Not carried over from km_tpu's compact path: ``pack2_host`` /
 ``unpack2_device`` (2-bit packing of the upload, which served a narrow
@@ -56,7 +60,7 @@ from __future__ import annotations
 import functools
 import gzip
 import itertools
-import time
+import os
 
 import numpy as np
 import torch
@@ -288,26 +292,63 @@ def _widened(acc, C: int):
     return out
 
 
+def _read_piece(acc, out):
+    """Accumulator ``acc`` read back whole as one sorted piece of a
+    capped count: C1 at ``min_count`` 1 into ``out``'s slots, whose
+    contents are dead, then its records copied to the host. Returns
+    (keys uint64, counts uint32, the sum of its counts)."""
+    kept, total, _ = cut(*acc, 1, out[0], out[1].view(torch.int32)).tolist()
+    keys = out[0][:kept].to("cpu", copy=True).numpy()
+    cnt = out[1].view(torch.int32)[:kept].to("cpu", copy=True).numpy()
+    return keys.view(np.uint64), cnt.view(np.uint32), total
+
+
+def _merge_pieces(pieces, min_count: int):
+    """The pieces of a capped count merged on the host, cut at
+    ``min_count`` on the merged counts: (keys uint64, counts uint32, the
+    number of distinct keys). One native k-way merge, or numpy's sort
+    where the native library is absent."""
+    if native.available():
+        return native.merge_pieces(pieces, min_count)
+    keys, cnt = merge_runs(np.concatenate([k for k, _ in pieces]),
+                           np.concatenate([c for _, c in pieces]),
+                           np.empty(0, np.uint64), np.empty(0, np.int64))
+    keep = cnt >= min_count
+    return keys[keep], cnt[keep].astype(np.uint32), len(keys)
+
+
 def _stream(chunks, k: int, canonical: bool, min_count: int, capacity: int,
-            dev: torch.device, sort_chunk: int, stats, counters=None):
+            dev: torch.device, sort_chunk: int, stats, counters=None,
+            ceiling: int | None = None):
     """The stream's accumulator loop. ``chunks`` yields callables, each of
     which puts one chunk's (codes, valid) on ``dev`` (the input, read
     while the card counts the chunk before it) and is called again by a
-    growth. Returns the keys and counts kept at ``min_count``, and fills
-    ``stats`` as ``count_batches_device_stream`` says.
+    growth or a dump. Returns the keys and counts kept at ``min_count``,
+    and fills ``stats`` as ``count_batches_device_stream`` and
+    ``count_batches_device_compact`` say.
 
     Each chunk's live length is read once the next chunk is in, before it
     goes up: a merge that overflowed C is thrown away, the accumulator
     before it is copied into a pair of the smallest doubling of C that
     holds the keys, and the chunk is counted again into it.
 
+    With a ``ceiling`` (at least the chunk, so a chunk's runs fit an
+    empty pair of it), C grows no further than it: a merge whose keys
+    exceed it is dumped instead (span ``count.dump``). The accumulator
+    before the merge is read back as one sorted piece, the pair is
+    emptied at the ceiling and the chunk counted again into it. After a
+    dump the finish reads the last accumulator back whole too, and the
+    pieces are merged and cut on the host (span ``count.host_merge``).
+
     ``counters``, int64 on ``dev``: [0] and [1] take M1's runs and extra
     bucket rounds, summed over the chunks; a third element, where given,
     is the input's flag of broken text, read in the same wait (one
     allocation for all three, so the input's flag adds nothing to the
     device's peak)."""
-    C = capacity
+    C = capacity if ceiling is None else min(capacity, ceiling)
     grows = n_chunks = 0
+    pieces: list = []  # the dumps, (keys uint64, counts uint32) each
+    dumped_total = 0
     # the chunk merges from one accumulator into the other, then they swap
     acc, spare = empty_accumulator(C, dev), empty_accumulator(C, dev)
     if counters is None:
@@ -322,9 +363,10 @@ def _stream(chunks, k: int, canonical: bool, min_count: int, capacity: int,
                                         sort_chunk=sort_chunk), acc
 
     def fit(chunk):
-        """Grow if the merge of ``chunk``, the last merged, overflowed C;
-        spare still holds the accumulator that merge read."""
-        nonlocal acc, spare, C, grows
+        """Grow, or dump at the ceiling, if the merge of ``chunk``, the
+        last merged, overflowed C; spare still holds the accumulator that
+        merge read."""
+        nonlocal acc, spare, C, grows, dumped_total
         if not bad.numel():
             n = int(acc[2])
         else:
@@ -333,9 +375,23 @@ def _stream(chunks, k: int, canonical: bool, min_count: int, capacity: int,
                 raise ValueError("malformed FASTQ record")
         if n <= C:
             return
+        if ceiling is not None and n > ceiling:
+            with profiling.phase("count.dump"):
+                keys, cnt, total = _read_piece(spare, acc)
+                pieces.append((keys, cnt))
+                dumped_total += total
+                acc = spare = None  # freed before the emptied pair
+                C = ceiling
+                acc = empty_accumulator(C, dev)
+                spare = empty_accumulator(C, dev)
+                with tally(torch.zeros(2, dtype=torch.int64, device=dev)):
+                    merge(chunk)
+            return
         with profiling.phase("count.grow"):
             while C < n:
                 C *= 2
+            if ceiling is not None:
+                C = min(C, ceiling)
             acc = _widened(spare, C)
             spare = None  # freed before its successor is allocated
             spare = empty_accumulator(C, dev)
@@ -357,20 +413,68 @@ def _stream(chunks, k: int, canonical: bool, min_count: int, capacity: int,
         if last is not None:
             fit(last)
 
+    n_dumps, dumped = len(pieces), sum(len(p[0]) for p in pieces)
     keys, cnt, kept, total, nu, runs, rounds = cut_readback(
-        acc, spare, min_count, counters[:2])
+        acc, spare, 1 if n_dumps else min_count, counters[:2])
+    if n_dumps:
+        with profiling.phase("count.host_merge"):
+            pieces.append((keys, cnt))
+            keys, cnt, nu = _merge_pieces(pieces, min_count)
+        kept, total = len(keys), total + dumped_total
     if stats is not None:
         stats.update(chunks=n_chunks, capacity=C, grows=grows, unique=nu,
                      total=total, kept=kept, runs=runs, m1_rounds=rounds)
+        if ceiling is not None:
+            stats.update(ceiling=ceiling, dumps=n_dumps, dumped=dumped)
     return keys, cnt
 
 
-def _check_stream(k: int, chunk: int, capacity: int) -> None:
+def _check_stream(k: int, chunk: int, capacity: int,
+                  ceiling: int | None = None) -> None:
     check_k(k)
     if chunk <= k:
         raise ValueError("chunk must exceed k")
     if capacity <= 0:
         raise ValueError("capacity must be > 0")
+    if ceiling is not None and ceiling < chunk:
+        raise ValueError("the ceiling of %d slots is below the chunk of %d "
+                         "bases: a chunk's keys must fit an emptied "
+                         "accumulator" % (ceiling, chunk))
+
+
+# device bytes a chunk's kernels hold beside the accumulators, a base of
+# the chunk (count.fastq_skewed peaks 0.61 GiB above its 2^28-slot pair
+# at 2^24 bases)
+CHUNK_WORKING_BYTES = 64
+
+
+def fitting_ceiling(chunk: int, dev: torch.device) -> int:
+    """The largest power of two of slots whose pair of accumulators (32 B
+    a slot) fits beside a chunk's working set in the memory free now, and
+    at least the chunk: on a card the driver's free memory and the blocks
+    torch's allocator holds unused, on CPU tensors the host's available
+    memory."""
+    if dev.type == "cuda":
+        free = torch.cuda.mem_get_info(dev)[0] + (
+            torch.cuda.memory_reserved(dev)
+            - torch.cuda.memory_allocated(dev))
+    else:
+        free = os.sysconf("SC_AVPHYS_PAGES") * os.sysconf("SC_PAGE_SIZE")
+    slots = (free - CHUNK_WORKING_BYTES * chunk) // 32
+    return max(1 << max(slots, 1).bit_length() - 1,
+               1 << (chunk - 1).bit_length())
+
+
+def _count_batches(batches, k, canonical, min_count, chunk, capacity, dev,
+                   sort_chunk, stats, ceiling):
+    span_s = {} if stats is None else stats.setdefault("span_s", {})
+    with profiling.collect(span_s):
+        chunks = chunk_stream(_coalesce_batches(batches, k, 4 * chunk),
+                              chunk, k)
+        return _stream((functools.partial(_upload, codes, valid, dev)
+                        for codes, valid in _input(chunks)),
+                       k, canonical, min_count, capacity, dev, sort_chunk,
+                       stats, ceiling=ceiling)
 
 
 def count_batches_device_stream(batches, k: int, canonical: bool = True,
@@ -409,15 +513,41 @@ def count_batches_device_stream(batches, k: int, canonical: bool = True,
     cut on the device and the wait on it) and ``count.readback`` (the
     kept records read back)."""
     _check_stream(k, chunk, capacity)
+    return _count_batches(batches, k, canonical, min_count, chunk, capacity,
+                          resolve_device(device), sort_chunk, stats, None)
+
+
+def count_batches_device_compact(batches, k: int, canonical: bool = True,
+                                 min_count: int = 1, chunk: int = 1 << 24,
+                                 device="cuda", sort_chunk: int = CHUNK,
+                                 stats=None, ceiling: int | None = None):
+    """(codes, valid) host batches counted as ``count --mode chunked``
+    counts them, jellyfish's ``--disk`` count: the stream's loop
+    (``count_batches_device_stream``, from 2^22 slots) whose accumulator
+    grows no further than ``ceiling`` slots (at least the chunk; None:
+    ``fitting_ceiling``, what the device holds now). A merge that
+    overflows the ceiling is dumped: the accumulator before it is read
+    back as one sorted piece, the pair emptied and the chunk counted
+    again into it. At the end, without a dump, the count finishes as the
+    stream's does; after one, the last accumulator is read back whole
+    and the pieces are merged on the host, the ``min_count`` cut made on
+    the merged counts. Returns (keys uint64, counts uint32), equal to
+    every other counting path's. Host memory holds the pieces (12 B a
+    record) and what is kept.
+
+    ``stats`` receives the stream's numbers (``unique`` and ``total``
+    over the merged pieces, ``kept`` after the cut) and ``ceiling``,
+    ``dumps`` (the merges dumped) and ``dumped`` (the records read back
+    in dumps); under ``span_s`` the stream's spans and ``count.dump``
+    (one dump: the wait, the piece copied to the host, the pair emptied
+    and the chunk counted again) and ``count.host_merge`` (the pieces
+    merged and cut on the host), each absent where none ran."""
     dev = resolve_device(device)
-    span_s = {} if stats is None else stats.setdefault("span_s", {})
-    with profiling.collect(span_s):
-        chunks = chunk_stream(_coalesce_batches(batches, k, 4 * chunk),
-                              chunk, k)
-        return _stream((functools.partial(_upload, codes, valid, dev)
-                        for codes, valid in _input(chunks)),
-                       k, canonical, min_count, capacity, dev, sort_chunk,
-                       stats)
+    if ceiling is None:
+        ceiling = fitting_ceiling(chunk, dev)
+    _check_stream(k, chunk, 1 << 22, ceiling)
+    return _count_batches(batches, k, canonical, min_count, chunk, 1 << 22,
+                          dev, sort_chunk, stats, ceiling)
 
 
 class _FastqBlocks:
@@ -583,7 +713,7 @@ def count_fastq_device_stream(paths, k: int, canonical: bool = True,
                               min_count: int = 1, min_quality=None,
                               chunk: int = 1 << 24, capacity: int = 1 << 22,
                               device="cuda", sort_chunk: int = CHUNK,
-                              stats=None):
+                              stats=None, ceiling: int | None = None):
     """FASTQ files -> (keys uint64, counts uint32), parsed on the device:
     the stream's accumulator loop (``count_batches_device_stream``'s,
     with its growths and its cut) fed by ``_FastqBlocks``, whose text P1
@@ -604,15 +734,19 @@ def count_fastq_device_stream(paths, k: int, canonical: bool = True,
     its buffer, its end found), ``input_bytes`` (bytes of text read) and
     ``card_parsed_bytes`` (bytes of text P1 received, each block once: a
     growth's second parse is not counted; a dropped last record is not
-    and a newline added at a file's end is)."""
-    _check_stream(k, chunk, capacity)
+    and a newline added at a file's end is).
+
+    With a ``ceiling``, the loop is ``count_batches_device_compact``'s,
+    with its dumps, host merge and numbers: ``count --mode chunked`` of
+    FASTQ on a card."""
+    _check_stream(k, chunk, capacity, ceiling)
     dev = resolve_device(device)
     span_s = {} if stats is None else stats.setdefault("span_s", {})
     with profiling.collect(span_s):
         counters = torch.zeros(3, dtype=torch.int64, device=dev)
         blocks = _FastqBlocks(paths, chunk, min_quality, dev, counters[2:])
         out = _stream(blocks, k, canonical, min_count, capacity, dev,
-                      sort_chunk, stats, counters=counters)
+                      sort_chunk, stats, counters=counters, ceiling=ceiling)
     if stats is not None:
         stats.update(input_bytes=blocks.input_bytes,
                      card_parsed_bytes=blocks.parsed_bytes)
@@ -634,113 +768,3 @@ def chunk_runs_device(codes: torch.Tensor, valid: torch.Tensor, k: int,
     run_keys, run_cnt, m = chunk_runs(keys, lengths, sort_chunk)
     m = int(m)
     return run_keys[:m], run_cnt[:m]
-
-
-class _RunReadback:
-    """Device runs -> host (keys uint64, counts int64), two chunks in
-    flight. On a card each chunk's runs are copied into one of two pinned
-    staging buffers without blocking and an event marks the copy's end;
-    the buffer is read only after its event, and reused only after it was
-    read (chunk i + 2 takes chunk i's buffer)."""
-
-    def __init__(self, device: torch.device, cap: int):
-        self.cuda = device.type == "cuda"
-        self.pending: list = []
-        self.runs: list[tuple[np.ndarray, np.ndarray]] = []
-        self.bytes = 0
-        self.n = 0
-        if self.cuda:
-            self.staging = [torch.empty((2, cap), dtype=torch.int64,
-                                        pin_memory=True) for _ in range(2)]
-
-    def push(self, keys: torch.Tensor, counts: torch.Tensor) -> None:
-        m = keys.numel()
-        if self.cuda:
-            buf = self.staging[self.n % 2]
-            buf[0, :m].copy_(keys, non_blocking=True)
-            buf[1, :m].copy_(counts, non_blocking=True)
-            done = torch.cuda.Event()
-            done.record()
-            self.pending.append((buf, m, done))
-        else:
-            self.pending.append((torch.stack([keys, counts]), m, None))
-        self.n += 1
-        if len(self.pending) >= 2:
-            self._drain()
-
-    def _drain(self) -> None:
-        buf, m, done = self.pending.pop(0)
-        if done is not None:
-            done.synchronize()
-        self.bytes += 2 * 8 * m
-        if m:
-            # real keys lie below 2**62 and SENTINEL runs were dropped on
-            # the device, so the int64 words are the uint64 keys, in order
-            host = buf[:, :m].numpy().copy()
-            self.runs.append((host[0].view(np.uint64), host[1]))
-
-    def finish(self) -> list[tuple[np.ndarray, np.ndarray]]:
-        while self.pending:
-            self._drain()
-        return self.runs
-
-
-def _merge_all(runs):
-    """Sorted (keys uint64, counts int64) runs -> one (keys, counts) with
-    duplicate keys summed: one native k-way merge, or the numpy pairwise
-    merge, started from empty, where the native library is absent."""
-    if native.available():
-        return native.merge_sorted_runs(runs)
-    acc = (np.empty(0, np.uint64), np.empty(0, np.int64))
-    for rk, rc in runs:
-        acc = merge_runs(acc[0], acc[1], rk, rc)
-    return acc
-
-
-def count_batches_device_compact(batches, k: int, canonical: bool = True,
-                                 min_count: int = 1, chunk: int = 1 << 24,
-                                 device="cuda", sort_chunk: int = CHUNK,
-                                 stats=None):
-    """File -> table counting with no accumulator on the device
-    (``count --mode chunked``): per chunk, the runs are summed on the
-    device (chunk_runs_device) and only they are read back; all chunks'
-    runs merge on the host at the end. There is no capacity to overflow,
-    so the input is read once; the runs wait in host memory (16 bytes
-    each) until the merge. Returns (keys uint64, counts uint32), equal to
-    every other counting path's.
-
-    ``stats``, a dict, receives the chunks, the runs and bytes read back,
-    the host seconds spent merging (``merge_s``), the launches of the
-    two kernels, and under ``span_s`` the seconds of the spans
-    ``count.input`` and ``count.upload``, as the stream's."""
-    check_k(k)
-    if chunk <= k:
-        raise ValueError("chunk must exceed k")
-    dev = resolve_device(device)
-    launches0 = (pack_canonical_windows.launches, sort_chunks_runs.launches)
-    readback = _RunReadback(dev, chunk)
-    chunks = chunk_stream(_coalesce_batches(batches, k, 4 * chunk), chunk, k)
-    span_s = {} if stats is None else stats.setdefault("span_s", {})
-    with profiling.collect(span_s):
-        for codes, valid in _input(chunks):
-            readback.push(*chunk_runs_device(
-                *_upload(codes, valid, dev), k, canonical=canonical,
-                sort_chunk=sort_chunk))
-    runs = readback.finish()
-
-    t0 = time.perf_counter()
-    if runs:
-        keys, cnt = _merge_all(runs)
-    else:
-        keys, cnt = np.empty(0, np.uint64), np.empty(0, np.int64)
-    merge_s = time.perf_counter() - t0
-    if stats is not None:
-        stats.update(
-            chunks=readback.n, runs=sum(len(r[0]) for r in runs),
-            readback_bytes=readback.bytes, unique=len(keys),
-            total=int(cnt.sum()), merge_s=merge_s,
-            pack_launches=pack_canonical_windows.launches - launches0[0],
-            sort_runs_launches=sort_chunks_runs.launches - launches0[1])
-    keep = cnt >= min_count
-    return keys[keep], cnt[keep].astype(np.uint32)
-

@@ -10,15 +10,19 @@ the run fails.
 
 ``--mode`` picks the device strategy, as in km_tpu: ``stream`` (and
 ``auto``) keeps one accumulator on the device, grown there when a chunk
-overflows it, and reads it back once; ``chunked`` reads each chunk's
-runs back and k-way-merges them on the host at the end, so it has no
-capacity, but holds every run in host memory until the merge. Both read
-the files once. ``--device host`` ignores it.
+overflows it, and reads it back once; ``chunked`` is jellyfish's
+``--disk`` count: the same accumulator, grown no further than a ceiling
+(``-s/--size``, jellyfish's hash size in slots, rounded up to a power of
+two; without it, what the card's free memory holds). A chunk that
+overflows the ceiling dumps the accumulator to the host as one sorted
+piece and starts an empty one; the pieces are merged on the host at the
+end and cut there at ``-L``. Both read the files once. ``--device host``
+ignores the mode, and the stream ignores ``--size``.
 
-Where the stream runs on a card in one process and every file is FASTQ,
+Where the count runs on a card in one process and every file is FASTQ,
 the text itself goes up and the card parses it (P1,
-``ops.count.count_fastq_device_stream``); FASTA, CPU tensors, the
-chunked mode and the sharded count keep the host's native parser.
+``ops.count.count_fastq_device_stream``), in either mode; FASTA, CPU
+tensors and the sharded count keep the host's native parser.
 
 Under torchrun with more than one process (``python -m
 torch.distributed.run --nproc_per_node=N -m km_tpu_torch count ...``),
@@ -43,7 +47,7 @@ from ..io.fastq import is_fastq, read_batches
 from ..models.table import CountTable
 from ..ops.count import (count_batches_device_compact,
                          count_batches_device_stream, count_batches_host,
-                         count_fastq_device_stream)
+                         count_fastq_device_stream, fitting_ceiling)
 from ..parallel import distributed
 
 # bases per uploaded chunk; the CPU runs the plain versions, where a
@@ -53,29 +57,45 @@ START_CAPACITY = 1 << 22
 MODES = ("auto", "stream", "chunked")
 
 
+def chunked_ceiling(size: int | None, chunk: int, dev) -> int:
+    """The chunked mode's ceiling in accumulator slots: ``size`` rounded
+    up to a power of two, refused below the chunk (whose keys must fit an
+    emptied accumulator); without it, ``ops.count.fitting_ceiling``."""
+    if size is None:
+        return fitting_ceiling(chunk, dev)
+    if size < chunk:
+        raise ValueError("--size %d is below the chunk of %d bases: the "
+                         "chunked count's ceiling must hold a chunk's keys"
+                         % (size, chunk))
+    return 1 << (size - 1).bit_length()
+
+
 def count_read_files(paths, k: int, canonical: bool = True,
                      min_count: int = 2, min_quality=None,
                      device: str = "cuda", stats=None, group=None,
-                     mode: str = "auto"):
+                     mode: str = "auto", size: int | None = None):
     """Count k-mers of read files on ``device`` ('cuda', 'cpu' or
     'host'); returns host (keys uint64, counts uint32).
 
     ``mode`` picks the device strategy: 'stream' (one device-resident
-    accumulator, one readback) or 'chunked' (per-chunk readbacks of the
-    runs and a native k-way merge on the host: no device capacity to
-    size, useful when host memory is the roomier resource); 'auto' =
-    'stream'. 'host' ignores it, and so does a process ``group``.
+    accumulator, one readback) or 'chunked' (jellyfish's ``--disk``
+    count: the accumulator capped at ``chunked_ceiling(size, ...)``
+    slots, dumped to the host when a chunk overflows it, the pieces
+    merged and cut on the host at the end;
+    ``ops.count.count_batches_device_compact``); 'auto' = 'stream'.
+    'host' ignores it, and so does a process ``group``; only 'chunked'
+    reads ``size``.
 
-    In stream mode the accumulator starts at 2^22 slots, as km_tpu's
-    does, and doubles on the device as the keys need (ops.count's
-    growth), so the files are read once. On a card, without a process
-    group, FASTQ files are parsed there (``count_fastq_device_stream``:
-    the host reads the text into pinned memory, P1 parses it); FASTA,
-    CPU tensors, the chunked mode and the sharded count parse on the
-    host. ``stats``, a dict, receives the
+    The accumulator starts at 2^22 slots, as km_tpu's does, and doubles
+    on the device as the keys need (ops.count's growth), so the files
+    are read once. On a card, without a process group, FASTQ files are
+    parsed there (``count_fastq_device_stream``: the host reads the text
+    into pinned memory, P1 parses it); FASTA, CPU tensors and the
+    sharded count parse on the host. ``stats``, a dict, receives the
     counter's numbers (capacity, grows, unique, kept, M1's ``runs`` and
-    ``m1_rounds``, its spans under ``span_s``, ...) and, for the stream,
-    ``retries``: the times the files were read again, 0.
+    ``m1_rounds``, its spans under ``span_s``, ...); for the stream
+    ``retries``, the times the files were read again, 0; for the chunked
+    count ``ceiling``, ``dumps`` and ``dumped``.
 
     With a process ``group``, every rank of it calls this alike and the
     count is sharded over the group on each rank's own device; the
@@ -94,21 +114,23 @@ def count_read_files(paths, k: int, canonical: bool = True,
                              min_count=min_count, chunk=CHUNK[dev.type],
                              device=dev, stats=stats)
     dev = resolve_device(device)
-    if mode == "chunked":
-        return count_batches_device_compact(
-            batches, k, canonical=canonical, min_count=min_count,
-            chunk=CHUNK[dev.type], device=dev, stats=stats)
+    chunk = CHUNK[dev.type]
+    ceiling = chunked_ceiling(size, chunk, dev) if mode == "chunked" \
+        else None
     if dev.type == "cuda" and all(is_fastq(p) for p in paths):
         out = count_fastq_device_stream(
             paths, k, canonical=canonical, min_count=min_count,
-            min_quality=min_quality, chunk=CHUNK[dev.type],
-            capacity=START_CAPACITY, device=dev, stats=stats)
+            min_quality=min_quality, chunk=chunk, capacity=START_CAPACITY,
+            device=dev, stats=stats, ceiling=ceiling)
+    elif mode == "chunked":
+        out = count_batches_device_compact(
+            batches, k, canonical=canonical, min_count=min_count,
+            chunk=chunk, device=dev, stats=stats, ceiling=ceiling)
     else:
         out = count_batches_device_stream(
             batches, k, canonical=canonical, min_count=min_count,
-            chunk=CHUNK[dev.type], capacity=START_CAPACITY, device=dev,
-            stats=stats)
-    if stats is not None:
+            chunk=chunk, capacity=START_CAPACITY, device=dev, stats=stats)
+    if stats is not None and mode != "chunked":
         stats["retries"] = 0
     return out
 
@@ -128,7 +150,8 @@ def main_count(args, argparser):
             args.reads_fn, args.k, canonical=args.canonical,
             min_count=args.min_count, min_quality=args.min_quality,
             device=args.device, stats=stats, group=group,
-            mode=getattr(args, "mode", "auto"))
+            mode=getattr(args, "mode", "auto"),
+            size=getattr(args, "size", None))
     if not writer:
         return stats
     keys, counts = out

@@ -1,6 +1,7 @@
-"""The port's other device counter on CPU tensors (the kernels' plain
-versions): ``count_batches_device_compact`` (``count --mode chunked``),
-against km_tpu's function of the same name (JAX on the CPU) and
+"""The port's chunked device counter on CPU tensors (the kernels' plain
+versions): ``count_batches_device_compact`` (``count --mode chunked``,
+the stream's loop under a ceiling), against km_tpu's function of the
+same name (JAX on the CPU) and
 ``count_batches_host``. Keys and counts are compared exactly, with the
 native merge and with the numpy fallback. Then ``--mode`` through both
 CLIs, and under a 2-process gloo group, where the sharded count runs
@@ -148,14 +149,21 @@ def test_compact_matches_km_tpu_and_host(case, k, canonical, min_count,
         tcount.count_batches_host(iter(_batches(case)), k, **kw)[0], host[0])
 
     stats = {}
+    launches = (tcount.pack_canonical_windows.launches,
+                tcount.sort_chunks_runs.launches)
     compact = tcount.count_batches_device_compact(
         iter(_batches(case)), k, chunk=CHUNK, device="cpu",
         sort_chunk=SORT_CHUNK, stats=stats, **kw)
     _equal(compact, host)
     _equal(compact, jcount.count_batches_device_compact(
         iter(_batches(case)), k, chunk=CHUNK, **kw))
-    assert stats["readback_bytes"] == 16 * stats["runs"]
-    assert stats["pack_launches"] == stats["sort_runs_launches"] == 0
+    # the default ceiling holds these counts: no dump, the stream's finish
+    assert stats["ceiling"] >= CHUNK
+    assert stats["dumps"] == stats["dumped"] == 0
+    assert stats["kept"] == len(compact[0])
+    # CPU tensors run the plain versions: no kernel launched
+    assert (tcount.pack_canonical_windows.launches,
+            tcount.sort_chunks_runs.launches) == launches
     if case == "spans_sort_chunks":
         assert stats["chunks"] > 1 and stats["runs"] > stats["unique"]
     if case == "one_chunk":
@@ -233,10 +241,11 @@ def test_modes_through_both_clis_write_equal_tables(tmp_path, min_count):
         out = str(tmp_path / ("port_%s.npz" % mode))
         stats = tcli.main(["count", "--device", "cpu", "--mode", mode,
                            *common, "-o", out, fq])
-        # both device modes sum the chunks' runs; the stream's M1 also
-        # counts its bucket rounds
-        assert "runs" in stats
-        assert ("m1_rounds" in stats) == (mode != "chunked")
+        # both device modes run the stream's loop, M1's runs and bucket
+        # rounds counted; only the chunked count has a ceiling and dumps,
+        # and only the stream reports its (zero) re-reads
+        assert "runs" in stats and "m1_rounds" in stats
+        assert ("dumps" in stats) == (mode == "chunked")
         assert ("retries" in stats) == (mode != "chunked")
         tables["port_" + mode] = _table(out)
         out = str(tmp_path / ("km_%s.npz" % mode))

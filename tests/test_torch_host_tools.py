@@ -198,8 +198,9 @@ def _options(add_args):
 def test_schema_matches_km_tpu(name):
     """The same options with the same flags, defaults, arities and
     types, count's --mode among them. The port's own: --device is
-    cuda/cpu/host with cuda the default, on count and cohort, and cohort
-    takes count's --mode for the samples it counts."""
+    cuda/cpu/host with cuda the default, on count and cohort, cohort
+    takes count's --mode for the samples it counts, and count takes
+    jellyfish's -s/--size, the chunked mode's ceiling."""
     mine = _options(getattr(schemas, "add_%s_args" % name))
     theirs = _options(getattr(km_schemas, "add_%s_args" % name))
     device = mine.pop("device", None)
@@ -209,6 +210,9 @@ def test_schema_matches_km_tpu(name):
             ("--mode",), "auto", None, ("auto", "stream", "chunked"), None,
             "_StoreAction")
         assert theirs_device[3] == ("auto", "tpu", "cpu", "host")
+        assert mine.pop("size") == (("-s", "--size"), None, None, None,
+                                    "int", "_StoreAction")
+        assert "size" not in theirs
     if name == "cohort":
         assert mine.pop("mode") == _options(schemas.add_count_args)["mode"]
     assert list(mine) == list(theirs)

@@ -593,3 +593,39 @@ def test_count_read_files_parses_fastq_on_the_card(cuda_device, tmp_path):
     np.testing.assert_array_equal(cc, hc)
     assert card["total"] == host["total"] and card["unique"] == host["unique"]
     assert card_peak <= host_peak
+
+
+@pytest.mark.cuda
+def test_chunked_count_of_fastq_dumps_on_the_card(cuda_device, tmp_path):
+    """``count --mode chunked``'s FASTQ entry on the card: P1 parses every
+    block (the card's share of the text, ``count.card_parse_pct``, reads
+    100), the accumulator is capped at 2^16 slots and dumped, and the
+    table equals the stream's."""
+    from km_tpu_torch.ops import parse
+    from km_tpu_torch.scripts.fastq_cases import reads_block, records
+
+    path = tmp_path / "c.fq"
+    block = reads_block(3 << 20, seed=6)  # twice: its keys reach -L 2
+    path.write_bytes(block + block + records(
+        seed=6, n=2000, lengths=(20, 150), alphabet="ACGTNacgt"))
+    runs = {}
+    for name, ceiling in (("chunked", 1 << 16), ("stream", None)):
+        stats = {}
+        launches = parse.parse_fastq.launches
+        out = count.count_fastq_device_stream(
+            [str(path)], 31, min_count=2, min_quality="+", chunk=1 << 16,
+            capacity=1 << 12, device=cuda_device, stats=stats,
+            ceiling=ceiling)
+        runs[name] = (out, stats, parse.parse_fastq.launches - launches)
+    (ck, cc), chunked, p1 = runs["chunked"]
+    (sk, sc), stream, _ = runs["stream"]
+    assert chunked["dumps"] >= 2 and chunked["capacity"] == 1 << 16
+    assert "dumps" not in stream
+    assert p1 == chunked["chunks"] + chunked["grows"] + chunked["dumps"]
+    assert 100 * chunked["card_parsed_bytes"] / chunked["input_bytes"] == 100
+    assert {"count.dump", "count.host_merge"} <= set(chunked["span_s"])
+    np.testing.assert_array_equal(ck, sk)
+    np.testing.assert_array_equal(cc, sc)
+    assert chunked["total"] == stream["total"]
+    assert chunked["unique"] == stream["unique"]
+    assert chunked["kept"] == stream["kept"] == len(sk) > 0

@@ -164,9 +164,13 @@ def test_a_direct_count_has_its_spans(mode):
             device="cpu", stats=stats)
         want = {"count.input", "count.upload", "count.readback", "count.cut"}
     else:
+        # under a ceiling of one chunk, the second chunk's merge dumps
         ops_count.count_batches_device_compact(
-            iter(batches), 21, chunk=1 << 12, device="cpu", stats=stats)
-        want = {"count.input", "count.upload"}
+            iter(batches), 21, chunk=1 << 12, device="cpu", stats=stats,
+            ceiling=1 << 12)
+        want = {"count.input", "count.upload", "count.readback", "count.cut",
+                "count.dump", "count.host_merge"}
+        assert stats["dumps"] >= 1
     assert set(stats["span_s"]) == want
     assert all(v > 0 for v in stats["span_s"].values())
     assert stats["chunks"] > 1 and "input_s" not in stats
