@@ -41,8 +41,9 @@ Two defects of km_tpu's stream are not reproduced:
 ``count_batches_device_compact`` (``count --mode chunked``, jellyfish's
 ``--disk`` count) runs the same loop under a ceiling: the accumulator
 grows up to it, and a merge that overflows it is dumped instead. The
-accumulator before that merge is read back as one sorted piece, the pair
-is emptied and the chunk counted again into it; at the end the last
+accumulator before that merge is read back as one sorted piece (through
+two pinned staging buffers, ``_read_staged``), the pair is emptied and
+the chunk counted again into it; at the end the last
 accumulator is read back too, and the pieces are merged on the host,
 where the ``min_count`` cut is made on the merged counts. Host memory
 holds the pieces, not every chunk's runs.
@@ -292,14 +293,57 @@ def _widened(acc, C: int):
     return out
 
 
+# bytes a staging buffer of ``_read_staged`` holds
+SLAB_BYTES = 1 << 26
+
+
+def _read_staged(src: torch.Tensor, dest: np.ndarray) -> None:
+    """The first ``len(dest)`` elements of the 1-d tensor ``src`` copied
+    into ``dest``, a host array of its dtype, slab by slab through two
+    staging buffers of SLAB_BYTES (pinned where ``src`` is on a card):
+    while slab i+1 is read from the card into one buffer, slab i is
+    copied out of the other into ``dest`` on torch's host threads, so the
+    fresh destination's first-touch faults spread over them. A buffer is
+    refilled only after its last slab was copied out, in host order."""
+    n = len(dest)
+    cuda = src.device.type == "cuda"
+    step = SLAB_BYTES // src.element_size()
+    bufs = [torch.empty(step, dtype=src.dtype, pin_memory=cuda)
+            for _ in range(2)]
+    out = torch.from_numpy(dest)
+    ready = [None, None]  # the event after a buffer's fill
+
+    def fill(lo: int) -> None:
+        b = lo // step % 2
+        hi = min(lo + step, n)
+        bufs[b][:hi - lo].copy_(src[lo:hi], non_blocking=True)
+        if cuda:
+            ready[b] = torch.cuda.Event()
+            ready[b].record()
+
+    fill(0)
+    for lo in range(0, n, step):
+        hi = min(lo + step, n)
+        if hi < n:
+            fill(hi)
+        b = lo // step % 2
+        if cuda:
+            ready[b].synchronize()
+        out[lo:hi].copy_(bufs[b][:hi - lo])
+
+
 def _read_piece(acc, out):
     """Accumulator ``acc`` read back whole as one sorted piece of a
     capped count: C1 at ``min_count`` 1 into ``out``'s slots, whose
-    contents are dead, then its records copied to the host. Returns
-    (keys uint64, counts uint32, the sum of its counts)."""
-    kept, total, _ = cut(*acc, 1, out[0], out[1].view(torch.int32)).tolist()
-    keys = out[0][:kept].to("cpu", copy=True).numpy()
-    cnt = out[1].view(torch.int32)[:kept].to("cpu", copy=True).numpy()
+    contents are dead, then its records copied to the host through the
+    staging pair (``_read_staged``). Returns (keys uint64, counts uint32,
+    the sum of its counts)."""
+    out_cnt = out[1].view(torch.int32)
+    kept, total, _ = cut(*acc, 1, out[0], out_cnt).tolist()
+    keys = np.empty(kept, np.int64)
+    cnt = np.empty(kept, np.int32)
+    _read_staged(out[0], keys)
+    _read_staged(out_cnt, cnt)
     return keys.view(np.uint64), cnt.view(np.uint32), total
 
 
@@ -348,7 +392,7 @@ def _stream(chunks, k: int, canonical: bool, min_count: int, capacity: int,
     C = capacity if ceiling is None else min(capacity, ceiling)
     grows = n_chunks = 0
     pieces: list = []  # the dumps, (keys uint64, counts uint32) each
-    dumped_total = 0
+    dumped_total = staged = 0
     # the chunk merges from one accumulator into the other, then they swap
     acc, spare = empty_accumulator(C, dev), empty_accumulator(C, dev)
     if counters is None:
@@ -366,7 +410,7 @@ def _stream(chunks, k: int, canonical: bool, min_count: int, capacity: int,
         """Grow, or dump at the ceiling, if the merge of ``chunk``, the
         last merged, overflowed C; spare still holds the accumulator that
         merge read."""
-        nonlocal acc, spare, C, grows, dumped_total
+        nonlocal acc, spare, C, grows, dumped_total, staged
         if not bad.numel():
             n = int(acc[2])
         else:
@@ -380,6 +424,7 @@ def _stream(chunks, k: int, canonical: bool, min_count: int, capacity: int,
                 keys, cnt, total = _read_piece(spare, acc)
                 pieces.append((keys, cnt))
                 dumped_total += total
+                staged += keys.nbytes + cnt.nbytes
                 acc = spare = None  # freed before the emptied pair
                 C = ceiling
                 acc = empty_accumulator(C, dev)
@@ -425,7 +470,8 @@ def _stream(chunks, k: int, canonical: bool, min_count: int, capacity: int,
         stats.update(chunks=n_chunks, capacity=C, grows=grows, unique=nu,
                      total=total, kept=kept, runs=runs, m1_rounds=rounds)
         if ceiling is not None:
-            stats.update(ceiling=ceiling, dumps=n_dumps, dumped=dumped)
+            stats.update(ceiling=ceiling, dumps=n_dumps, dumped=dumped,
+                         dump_staged_bytes=staged)
     return keys, cnt
 
 
@@ -537,11 +583,13 @@ def count_batches_device_compact(batches, k: int, canonical: bool = True,
 
     ``stats`` receives the stream's numbers (``unique`` and ``total``
     over the merged pieces, ``kept`` after the cut) and ``ceiling``,
-    ``dumps`` (the merges dumped) and ``dumped`` (the records read back
-    in dumps); under ``span_s`` the stream's spans and ``count.dump``
-    (one dump: the wait, the piece copied to the host, the pair emptied
-    and the chunk counted again) and ``count.host_merge`` (the pieces
-    merged and cut on the host), each absent where none ran."""
+    ``dumps`` (the merges dumped), ``dumped`` (the records read back
+    in dumps) and ``dump_staged_bytes`` (the bytes the dumps moved
+    through the staging pair of ``_read_staged``, 12 a record); under
+    ``span_s`` the stream's spans and ``count.dump`` (one dump: the
+    wait, the piece copied to the host, the pair emptied and the chunk
+    counted again) and ``count.host_merge`` (the pieces merged and cut
+    on the host), each absent where none ran."""
     dev = resolve_device(device)
     if ceiling is None:
         ceiling = fitting_ceiling(chunk, dev)

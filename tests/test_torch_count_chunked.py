@@ -257,3 +257,41 @@ def test_the_native_merge_of_pieces_is_exact_on_every_thread(n_pieces):
     np.testing.assert_array_equal(got_keys, keys[sums >= 2])
     np.testing.assert_array_equal(got_counts,
                                   sums[sums >= 2].astype(np.uint32))
+
+
+SLAB = 64  # bytes: 8 keys or 16 counts a slab
+
+
+@pytest.mark.parametrize("count_view", [False, True])
+@pytest.mark.parametrize("slabs, extra", [(0, 0), (0, 1), (1, -1), (1, 0),
+                                          (1, 1), (5, 3)])
+def test_a_staged_read_equals_a_plain_copy(monkeypatch, slabs, extra,
+                                           count_view):
+    """``_read_staged`` over small slabs: the first n elements of keys
+    (int64) or of the int32 view of counts, for n of 0, 1, a slab less
+    one, a slab, a slab and one, and several slabs; the rest of the
+    tensor is not read."""
+    monkeypatch.setattr(ops_count, "SLAB_BYTES", SLAB)
+    src = torch.randint(-2 ** 62, 2 ** 62, (64,), dtype=torch.int64)
+    if count_view:
+        src = src.view(torch.int32)
+    n = slabs * SLAB // src.element_size() + extra
+    dest = np.empty(n, src.numpy().dtype)
+    ops_count._read_staged(src, dest)
+    np.testing.assert_array_equal(dest, src[:n].to("cpu").numpy())
+
+
+@pytest.mark.parametrize("slab_bytes", [ops_count.SLAB_BYTES, 256])
+@pytest.mark.parametrize("ceiling, dumps", [(1 << 15, 0), (1 << 13, 3)])
+def test_the_dumps_staged_bytes_are_their_records(monkeypatch, slab_bytes,
+                                                  ceiling, dumps):
+    """``dump_staged_bytes``: 12 B (a key and a count) for each record a
+    dump read back, 0 where none ran; with slabs of 256 B each piece
+    crosses hundreds of them and the table stays exact."""
+    monkeypatch.setattr(ops_count, "SLAB_BYTES", slab_bytes)
+    batches, _, _ = sample()
+    out, stats = chunked(batches, ceiling)
+    assert stats["dumps"] == dumps
+    assert stats["dump_staged_bytes"] == 12 * stats["dumped"]
+    assert (stats["dumped"] > 0) == (dumps > 0)
+    _equal(out, reference(batches, K, 2))
