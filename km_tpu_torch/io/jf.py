@@ -34,6 +34,8 @@ from dataclasses import dataclass, field
 
 import numpy as np
 
+from ..utils import profiling
+
 
 @dataclass
 class JFData:
@@ -158,7 +160,14 @@ def write_jf(path: str, keys: np.ndarray, counts: np.ndarray, k: int,
 
 
 def read_jf(path: str) -> JFData:
-    """Decode all records of a .jf file into packed-key/count arrays."""
+    """Decode all records of a .jf file into packed-key/count arrays: the
+    span ``table.read``. ``read_jf.records`` and ``read_jf.bytes`` count
+    the records decoded and the file bytes read, header included."""
+    with profiling.phase("table.read"):
+        return _read_jf(path)
+
+
+def _read_jf(path: str) -> JFData:
     header = read_header(path)
     if header.get("format") != "binary/sorted":
         raise ValueError(
@@ -189,6 +198,12 @@ def read_jf(path: str) -> JFData:
         counts |= raw[:, key_bytes + b].astype(np.uint64) << np.uint64(8 * b)
     if counter_len <= 4 or (len(counts) and counts.max() < 1 << 32):
         counts = counts.astype(np.uint32)
+    read_jf.records += n
+    read_jf.bytes += offset + len(data)
 
     return JFData(k=k, canonical=bool(header["canonical"]), keys=keys,
                   counts=counts, header=header)
+
+
+read_jf.records = 0
+read_jf.bytes = 0

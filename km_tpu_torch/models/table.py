@@ -16,6 +16,7 @@ import numpy as np
 
 from ..io.jf import read_jf
 from ..ops import encode
+from ..utils import profiling
 
 
 @dataclass
@@ -50,8 +51,12 @@ class CountTable:
             wide = len(counts) and int(counts.max()) >= 1 << 32
             counts = counts.astype(np.uint64 if wide else np.uint32)
         if not presorted:
-            order = np.argsort(keys, kind="stable")
-            keys, counts = keys[order], counts[order]
+            # a .jf lists its records in jellyfish's hash order: the span
+            # ``table.sort``; ``CountTable.host_sorted`` counts the records
+            with profiling.phase("table.sort"):
+                order = np.argsort(keys, kind="stable")
+                keys, counts = keys[order], counts[order]
+            CountTable.host_sorted += len(keys)
         return cls(k=int(k), canonical=bool(canonical), keys=keys,
                    counts=counts, name=name)
 
@@ -156,3 +161,6 @@ class CountTable:
     @property
     def n_kmers(self) -> int:
         return len(self.keys)
+
+
+CountTable.host_sorted = 0

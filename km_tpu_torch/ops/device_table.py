@@ -18,6 +18,7 @@ import torch
 
 from ..device import (check_k, resolve_device, to_device_keys,
                       u64_to_i64)
+from ..utils import profiling
 
 
 def _mask(bits: int) -> int:
@@ -58,16 +59,22 @@ class DeviceCountTable:
                  canonical: bool, name: str = "", device="cuda"):
         check_k(k)
         self.device = resolve_device(device)
-        keys = np.asarray(keys, dtype=np.uint64)
-        counts = np.asarray(counts)
-        # a host table's keys are sorted already: at 1e8 records and more
-        # the argsort and the two gathers would be most of the upload
-        if len(keys) > 1 and not (keys[1:] >= keys[:-1]).all():
-            order = np.argsort(keys, kind="stable")
-            keys, counts = keys[order], counts[order]
-        self.keys = torch.from_numpy(u64_to_i64(keys)).to(self.device)
-        self.counts = torch.from_numpy(
-            counts.astype(np.int64)).to(self.device)
+        # the span ``table.upload``: the sorted check, the conversions
+        # and both copies; ``DeviceCountTable.host_sorted`` counts the
+        # records sorted here
+        with profiling.phase("table.upload"):
+            keys = np.asarray(keys, dtype=np.uint64)
+            counts = np.asarray(counts)
+            # a host table's keys are sorted already: at 1e8 records and
+            # more the argsort and the two gathers would be most of the
+            # upload
+            if len(keys) > 1 and not (keys[1:] >= keys[:-1]).all():
+                order = np.argsort(keys, kind="stable")
+                keys, counts = keys[order], counts[order]
+                DeviceCountTable.host_sorted += len(keys)
+            self.keys = torch.from_numpy(u64_to_i64(keys)).to(self.device)
+            self.counts = torch.from_numpy(
+                counts.astype(np.int64)).to(self.device)
         self.k = int(k)
         self.canonical = bool(canonical)
         self.name = name
@@ -111,3 +118,6 @@ class DeviceCountTable:
         sums = cnt.sum(dim=-1, keepdim=True).to(torch.float64)
         thr = torch.clamp(sums * float(ratio), min=float(n_cutoff))
         return ck, cnt, cnt.to(torch.float64) >= thr
+
+
+DeviceCountTable.host_sorted = 0

@@ -12,6 +12,13 @@ it with its outputs copied back into the state tensors it read and
 replays it, and every later call replays it, so that each replay
 continues where the last one stopped. The graph lives as long as the
 ``Replay``. CPU tensors always run eagerly.
+
+Every warm-up and capture on a device runs on that device's one side
+stream (``side_stream``), as ``torch.cuda.graph`` captures on one
+stream of its class: torch keeps a cuBLAS workspace (32 MiB) for each
+stream that runs a matmul, so a new stream per block would keep one
+more workspace with every catalog call, up to torch's pool of 32
+streams.
 """
 
 from __future__ import annotations
@@ -20,13 +27,24 @@ import torch
 
 from . import profiling
 
+_SIDE: dict = {}
+
+
+def side_stream() -> "torch.cuda.Stream":
+    """The current device's side stream for warm-ups and captures, made
+    on first use and kept."""
+    device = torch.cuda.current_device()
+    if device not in _SIDE:
+        _SIDE[device] = torch.cuda.Stream(device)
+    return _SIDE[device]
+
 
 def _warm_up(block) -> None:
-    """Run ``block()`` once on a side stream, ordered with the current
+    """Run ``block()`` once on the side stream, ordered with the current
     stream on both sides: the span ``graph.warm_up``."""
     with profiling.phase("graph.warm_up"):
         main = torch.cuda.current_stream()
-        side = torch.cuda.Stream()
+        side = side_stream()
         side.wait_stream(main)
         with torch.cuda.stream(side):
             block()
@@ -46,7 +64,7 @@ def _capture(holder, names, block) -> "torch.cuda.CUDAGraph":
         # but without its gc.collect() and empty_cache() (milliseconds
         # each, once per capture, with the catalog's host objects alive)
         main = torch.cuda.current_stream()
-        side = torch.cuda.Stream()
+        side = side_stream()
         side.wait_stream(main)
         with torch.cuda.stream(side):
             graph.capture_begin()

@@ -139,6 +139,24 @@ def test_graph_replay_changes_nothing(cuda_device):
 
 
 @pytest.mark.cuda
+def test_catalog_calls_on_new_tables_leave_no_memory(cuda_device):
+    """Every call's graph warm-ups and captures run on the device's one
+    side stream, so calls on new tables after the first leave the
+    card's allocated memory where the first left it: no cuBLAS workspace
+    of a new stream each time."""
+    host = CountTable.from_jf(os.path.join(DATA_DIR, "jf", "03H116_ITD.jf"))
+    targets = _catalog(host.k)
+    after = []
+    for _ in range(4):
+        table = DeviceCountTable.from_host(host, device=cuda_device)
+        run_catalog(targets, table)
+        del table
+        torch.cuda.synchronize(cuda_device)
+        after.append(torch.cuda.memory_allocated(cuda_device))
+    assert after[2:] == [after[1]] * 2, after
+
+
+@pytest.mark.cuda
 def test_sweep_ties_on_card(cuda_device):
     """argmin on the card takes the lowest index among equal distances:
     a diamond of equal paths and random graphs with weights 1 and 0.01
